@@ -12,6 +12,8 @@ def pytest_addoption(parser):
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running CPU test")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card and nvcc; skips without them")
 
 
 @pytest.fixture
