@@ -6,9 +6,11 @@ Phases (any failure raises; the script then exits non-zero and prints no
 result):
 
 1. device    - require CUDA; print the card's name and power limit.
-2. build     - build the CUDA kernel from the checkout's source with
-               nvcc; the PTX has no fma.
-3. kernel    - each kernel against its plain torch version on the same
+2. build     - build both CUDA sources (event_step.cu, ckpt_delta.cu)
+               from the checkout with nvcc, one process each, started
+               together; the event_step PTX has no fma, the ckpt_delta PTX
+               divides with div.rn.f32, rounds with cvt.rni and has no fma.
+3. kernel    - event_step against its plain torch version on the same
                CUDA tensors, ``==`` on the bits, at 300, 4,800, the main
                path's 5,200 and 65,536 lanes with 1 and 4 passes.
 4. main path - the paper's study at the scale ``BENCH_simulator.json``
@@ -23,22 +25,54 @@ result):
 5. scale     - 65,536 lanes as one chunk (the ``engine_perf.py`` big-lane
                setup), lanes/s, 64 lanes checked against the CPU, and a
                profiler window for the device's busy share.
-6. timing    - each kernel at the main path's shape against its plain
+6. timing    - event_step at the main path's shape against its plain
                version, by CUDA events, beside its bytes bound; the timed
                state is checked ``==`` too.
+7. ckpt kernels - quantize_delta / dequantize_delta kernels ``==`` their
+               plain versions (q, scales, restored bits) at 123, 256,
+               1000 x 37 and 4096 x 16 elements in fp32 and bf16, with a
+               random and a zero delta.
+8. trainer   - the slice's main path: FaultTolerantTrainer on
+               tinyllama-1.1b at full width (1.1e9 bf16 params + fp32
+               AdamW moments, 11.0 GB; seq 128, batch 8, the CLI's
+               platform) over a fixed trace with one periodic save, one
+               trusted true prediction and its proactive save, and the
+               fault it predicted, which rolls back to the delta; the
+               ckpt_delta launch counts set to 0 just before and read just
+               after.  Before the run: timed train steps and where a step
+               goes (forward + backward, AdamW, device busy share).  At
+               the proactive save, through the manager's hooks: both
+               kernels ``==`` plain on every one of the 24 quantized leaves
+               and on one bf16 parameter leaf, and timed over those 24
+               leaves (CUDA events) beside the plain versions and the
+               bytes bound.  At the restore: quantized leaves within their
+               block's scale/2 of the saved state, raw leaves ``==``.
+               Bytes and seconds of each save and restore, C and C_p.
+9. cuda vs cpu - the reduced llama3.2-1b trainer of ``tests/test_ft.py``
+               (30 steps, its trace) on CUDA and on the CPU from one
+               initial state: every TrainerStats counter and virtual time
+               and the (step, kind) of every restore ``==`` (one of them is
+               from a delta), final loss within 1e-3 relative (bf16).
 
 The last two lines are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.  Run from a checkout: it imports the
-port from ``src/`` beside it and builds into ``build/repro_torch/``.
+port from ``src/`` beside it and builds into ``build/repro_torch/``.  The
+checkpoint phases write about 27 GB into a temporary directory (under
+``$TMPDIR``), which is removed at the end; the script raises if the disk
+has less free space than it needs.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -74,10 +108,14 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _bitwise_equal(a, b) -> bool:
+def _bits_equal(a, b) -> bool:
+    """Same dtype, shape and bits (NaNs and signed zeros included)."""
     import torch
-    if a.dtype == torch.float64:
-        a, b = a.view(torch.int64), b.view(torch.int64)
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point() and a.numel():
+        a = a.reshape(-1).view(torch.uint8)
+        b = b.reshape(-1).view(torch.uint8)
     return bool(torch.equal(a, b))
 
 
@@ -96,18 +134,41 @@ def phase_device() -> dict:
             "count": torch.cuda.device_count()}
 
 
+# PTX each source must (and must not) contain: the bitwise contracts.
+PTX_RULES = {
+    "event_step": ((), ("fma.rn.f64",)),
+    "ckpt_delta": (("div.rn.f32", "cvt.rni.f32.f32"),
+                   ("fma.rn.f32", "div.approx", "div.full")),
+}
+
+
 def phase_build() -> None:
+    """Build every source with its own nvcc, all started together, and
+    read each one's PTX."""
     from repro_torch.kernels import _build
+    names = sorted(PTX_RULES)
     t0 = time.perf_counter()
-    name = "event_step"
-    info = _build.build(name)
-    log(f"[build] {name} built in {time.perf_counter() - t0:.2f} s")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {name}: {line.strip()}")
-    if "fma.rn.f64" in _build.ptx(name):
-        raise RuntimeError(f"{name}: PTX contains fma.rn.f64")
-    log(f"[build] {name}: PTX has no fma.rn.f64")
+    with ThreadPoolExecutor(2 * len(names)) as pool:
+        builds = [pool.submit(_build.build, n) for n in names]
+        ptxs = [pool.submit(_build.ptx, n) for n in names]
+        infos = [f.result() for f in builds]
+        ptxs = [f.result() for f in ptxs]
+    log(f"[build] {', '.join(names)} built and their PTX read in "
+        f"{time.perf_counter() - t0:.2f} s (one nvcc per source, in "
+        f"parallel)")
+    for name, info, ptx in zip(names, infos, ptxs):
+        log(f"[build] {name}: nvcc {info['seconds']:.2f} s")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
+        need, banned = PTX_RULES[name]
+        missing = [w for w in need if w not in ptx]
+        found = [w for w in banned if w in ptx]
+        if missing or found:
+            raise RuntimeError(f"{name}: PTX lacks {missing} or contains "
+                               f"{found}")
+        log(f"[build] {name}: PTX has {list(need)} and none of "
+            f"{list(banned)}")
 
 
 def _max_abs_err(a, b) -> float:
@@ -129,7 +190,7 @@ def _check_step(fs, is_, n: int) -> float:
         torch.cuda.synchronize()
         max_err = max(max_err, _max_abs_err(fk, fr),
                       _max_abs_err(ik.double(), ir.double()))
-        if not (_bitwise_equal(fk, fr) and _bitwise_equal(ik, ir)):
+        if not (_bits_equal(fk, fr) and _bits_equal(ik, ir)):
             bad = int(((fk != fr).any(0) | (ik != ir).any(0)).sum())
             raise AssertionError(f"event_step kernel != plain at {n} "
                                  f"lanes, passes={passes}: {bad} lanes "
@@ -383,9 +444,474 @@ def phase_timing(n_lanes: int) -> dict:
             "bound_by": bound_by, "max_abs_err": max_err}
 
 
+# -- the fault-tolerant trainer's path (ckpt_delta kernels) -------------------
+
+ARCH = "tinyllama-1.1b"      # launch/train.py's default --arch, full width
+SEQ, BATCH = 128, 8          # launch/train.py's default shape
+STEP_TIME, MTBF = 10.0, 600.0  # launch/train.py's default platform
+CKPT_SIZES = ((123,), (256,), (1000, 37), (4096, 16))
+N_WARM_STEPS = 3
+TIMING_REPS = 5
+# CUDA vs CPU final loss of the reduced bf16 trainer: the measured gap was
+# 3.35e-5 relative (H100 SXM, 700 W), so about 30 times the reading.
+LOSS_RTOL_BF16 = 1e-3
+# The bf16 parameter leaf held to plain beside the 24 quantized ones.
+BF16_LEAF = "['params']['layers'][0]['ffn']['w_gate']"
+
+
+def _check_ckpt_leaf(cur, base, what: str, errs: dict):
+    """Both kernels == their plain versions on one (cur, base) pair; folds
+    each kernel's largest absolute difference into ``errs`` and returns
+    the kernel's scales."""
+    import torch
+    from repro_torch.kernels import ckpt_delta as cd
+    q_k, s_k = cd.quantize_delta(cur, base)
+    q_r, s_r = cd.quantize_delta_ref(cur, base)
+    torch.cuda.synchronize()
+    if not (_bits_equal(q_k, q_r) and _bits_equal(s_k, s_r)):
+        bad = int((q_k != q_r).sum())
+        raise AssertionError(f"quantize_delta kernel != plain on {what}: "
+                             f"{bad} q differ, scales equal "
+                             f"{_bits_equal(s_k, s_r)}")
+    out_k = cd.dequantize_delta(q_k, s_k, base)
+    out_r = cd.dequantize_delta_ref(q_r, s_r, base)
+    torch.cuda.synchronize()
+    if not _bits_equal(out_k, out_r):
+        raise AssertionError(f"dequantize_delta kernel != plain on {what}")
+    errs["quantize_delta"] = max(errs["quantize_delta"],
+                                 _max_abs_err(q_k.float(), q_r.float()),
+                                 _max_abs_err(s_k, s_r))
+    errs["dequantize_delta"] = max(errs["dequantize_delta"],
+                                   _max_abs_err(out_k.float(),
+                                                out_r.float()))
+    return s_k
+
+
+def phase_ckpt_kernels(errs: dict) -> None:
+    """Both ckpt_delta kernels == plain at the reference test's sizes."""
+    import numpy as np
+    import torch
+    for shape in CKPT_SIZES:
+        for dtype in (torch.float32, torch.bfloat16):
+            g = np.random.default_rng(sum(shape))
+            base = torch.from_numpy(g.standard_normal(shape)).to(dtype)
+            cur = (base.float() + 0.01 * torch.from_numpy(
+                g.standard_normal(shape)).float()).to(dtype)
+            base, cur = base.cuda(), cur.cuda()
+            _check_ckpt_leaf(cur, base, f"{shape} {dtype}", errs)
+            s = _check_ckpt_leaf(base, base, f"{shape} {dtype}, zero delta",
+                                 errs)
+            if not bool((s == 1.0).all()):
+                raise AssertionError("zero delta: scales are not 1")
+    log(f"[ckpt-kernels] quantize/dequantize kernel == plain at "
+        f"{[tuple(s) for s in CKPT_SIZES]}, fp32 and bf16, random and "
+        f"zero delta")
+
+
+def _disk_check(root: str, need: int) -> None:
+    free = shutil.disk_usage(root).free
+    log(f"[disk] {root}: {free / 1e9:.2f} GB free, the checkpoint phases "
+        f"need about {need / 1e9:.2f} GB")
+    if free < need:
+        raise RuntimeError(f"{root} has {free} bytes free; the full-width "
+                           f"checkpoint phases need about {need} bytes")
+
+
+def _full_width_trainer(workdir: str, trace=None):
+    from repro_torch.configs import get
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.train import cli_platform
+    from repro_torch.train import FaultTolerantTrainer
+    return FaultTolerantTrainer(
+        get(ARCH), InputShape("cli", SEQ, BATCH, "train"),
+        cli_platform(STEP_TIME, MTBF), workdir=workdir,
+        step_time=STEP_TIME, trace=trace)
+
+
+def _free_cuda() -> None:
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _step_ms(tr) -> float:
+    """Steady milliseconds of one full-width train step: the trainer's own
+    step on its state and first batch, nothing committed."""
+    import torch
+    batch = tr.data.batch_at(0)
+    step_s = []
+    for _ in range(N_WARM_STEPS):
+        t0 = time.perf_counter()
+        out = tr._train_step(tr.state["params"], tr.state["opt"], batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        del out
+    steady = min(step_s[1:])
+    log(f"[step] train steps (s): {step_s}; steady {steady * 1e3:.3f} ms "
+        f"per step, {SEQ * BATCH / steady:.1f} tokens/s")
+    return steady * 1e3
+
+
+def _check_proactive(tr, state, bf16_base, errs: dict) -> dict:
+    """At the run's proactive save, before it is written: both kernels ==
+    plain on the 24 leaves it quantizes (against the device base of the
+    last full save) and on one bf16 parameter leaf (against that leaf at
+    the last full save), then both timed over those 24 leaves.  The launch
+    counts are left as they were.  Returns what the restore check needs."""
+    from repro_torch.ckpt.manager import is_quantized
+    from repro_torch.kernels import ckpt_delta as cd
+    from repro_torch.tree import flatten, leaf_names
+
+    launches = cd.quantize_delta.launches, cd.dequantize_delta.launches
+    leaves, names = flatten(state), leaf_names(state)
+    base = tr.manager._last_full_state
+    quantized = [i for i, t in enumerate(leaves) if is_quantized(t)]
+    if len(quantized) != 24:
+        raise AssertionError(f"{len(quantized)} quantized leaves, not 24")
+    scales = {i: _check_ckpt_leaf(leaves[i], base[i], names[i], errs)
+              for i in quantized}
+    bf16_leaf = names.index(BF16_LEAF)
+    _check_ckpt_leaf(leaves[bf16_leaf], bf16_base, names[bf16_leaf], errs)
+    n_q = sum(leaves[i].numel() for i in quantized)
+    log(f"[ckpt] at the proactive save: quantize/dequantize kernel == plain "
+        f"on all 24 quantized leaves ({n_q} elements, fp32) and on the bf16 "
+        f"leaf {names[bf16_leaf]} ({leaves[bf16_leaf].numel()} elements); "
+        f"largest differences {errs}")
+    timing = _time_ckpt_kernels([(leaves[i], base[i]) for i in quantized])
+    cd.quantize_delta.launches, cd.dequantize_delta.launches = launches
+    return {"leaves": leaves, "names": names, "scales": scales,
+            "base": {i: base[i] for i in quantized}, "timing": timing}
+
+
+def _check_restored(restored, saved: dict) -> float:
+    """The leaves a delta restore gave back against the state the
+    proactive save wrote: quantized leaves within their block's scale/2,
+    raw leaves ``==``.  Returns the worst error as a share of its bound."""
+    import torch
+    from repro_torch.kernels import ckpt_delta as cd
+    from repro_torch.tree import flatten
+
+    names, base, scales = saved["names"], saved["base"], saved["scales"]
+    worst = 0.0
+    for i, (live, got) in enumerate(zip(saved["leaves"], flatten(restored))):
+        if got.dtype != live.dtype or got.device != live.device:
+            raise AssertionError(f"{names[i]}: restored as {got.dtype} on "
+                                 f"{got.device}")
+        if i not in scales:
+            if not _bits_equal(got, live):
+                raise AssertionError(f"{names[i]}: raw leaf not == after "
+                                     f"restore")
+            continue
+        err = cd._pad_blocks((got.float() - live.float()).abs(), cd.BLOCK)
+        mag = cd._pad_blocks(torch.maximum(live.float().abs(),
+                                           base[i].float().abs()), cd.BLOCK)
+        # scale/2, plus 4 float32 ulps of the operands for the roundings of
+        # cur - base and of base + q*scale.
+        bound = scales[i][:, None] / 2 + mag * 2.0 ** -21
+        if not bool((err <= bound).all()):
+            raise AssertionError(f"{names[i]}: restored leaf off by more "
+                                 f"than scale/2")
+        worst = max(worst, float((err / bound).max()))
+    return worst
+
+
+def _step_breakdown(tr) -> None:
+    """Where one full-width train step goes: forward + backward and the
+    AdamW update by CUDA events, and the device's busy share of one whole
+    step (profiler).  The trainer's state is read, not changed."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.model import loss_fn
+    from repro_torch.optim.adamw import adamw_update
+    from repro_torch.tree import flatten, unflatten
+
+    params, opt = tr.state["params"], tr.state["opt"]
+    batch = tr.data.batch_at(0)
+
+    def fwd_bwd():
+        leaves = [p.detach().requires_grad_() for p in flatten(params)]
+        loss, _ = loss_fn(tr.cfg, unflatten(params, leaves), batch)
+        return torch.autograd.grad(loss, leaves)
+
+    grads = unflatten(params, list(fwd_bwd()))
+    fb_ms = _time_ms(fwd_bwd, 3)
+    opt_ms = _time_ms(lambda: adamw_update(params, grads, opt, tr.opt_cfg),
+                      3)
+    del grads
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr._train_step(params, opt, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = _device_rows(prof)
+    busy = sum(r[0] for r in rows) / 1e6
+    log(f"[step] forward + backward {fb_ms:.3f} ms, AdamW update "
+        f"{opt_ms:.3f} ms (CUDA events); one profiled step: wall "
+        f"{wall * 1e3:.3f} ms, device busy {busy * 1e3:.3f} ms "
+        f"({busy / wall:.3f} of wall), {sum(r[2] for r in rows)} device "
+        f"events")
+    for dev_us, key, count in sorted(rows, reverse=True)[:6]:
+        log(f"[step]   {dev_us / 1e3:10.3f} ms  {count:6d}x  {key[:70]}")
+
+
+def _time_ckpt_kernels(pairs) -> dict:
+    """Both kernels and their plain versions over the leaves of one save
+    (quantize) and of one restore (dequantize), by CUDA events."""
+    from repro_torch.kernels import ckpt_delta as cd
+    qs = [cd.quantize_delta(c, b) for c, b in pairs]
+    nbytes = sum(cd.bytes_moved(c.numel(), c.dtype) for c, _ in pairs)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    out = {}
+    for name, kernel, plain in (
+            ("quantize_delta",
+             lambda: [cd.quantize_delta(c, b) for c, b in pairs],
+             lambda: [cd.quantize_delta_ref(c, b) for c, b in pairs]),
+            ("dequantize_delta",
+             lambda: [cd.dequantize_delta(q, s, b)
+                      for (q, s), (_, b) in zip(qs, pairs)],
+             lambda: [cd.dequantize_delta_ref(q, s, b)
+                      for (q, s), (_, b) in zip(qs, pairs)])):
+        ms = _time_ms(kernel, TIMING_REPS)
+        plain_ms = _time_ms(plain, TIMING_REPS)
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": "bytes"}
+        log(f"[timing] {name} over the {len(pairs)} leaves of one "
+            f"{'save' if name.startswith('q') else 'restore'}: kernel "
+            f"{ms:.5f} ms, plain {plain_ms:.5f} ms, bound {bound_ms:.5f} ms "
+            f"by bytes ({nbytes} bytes), {bound_ms / ms:.3f} of the bound")
+    return out
+
+
+def _fault_trace_for(decision):
+    """One fault, predicted, 60 s after the first periodic save ends: the
+    trainer saves periodically, trusts the prediction (60 s >= beta_lim),
+    takes a proactive save that completes at the fault date, and the fault
+    rolls it back to that delta."""
+    import math
+
+    import numpy as np
+    from repro_torch.core.traces import FAULT_PRED, EventTrace
+    c = 3.0 * STEP_TIME
+    first_save_end = STEP_TIME * math.ceil((decision.period - c)
+                                           / STEP_TIME) + c
+    date = first_save_end + 6 * STEP_TIME
+    if not (decision.use_predictions and 6 * STEP_TIME >= decision.beta_lim):
+        raise AssertionError(f"the CLI platform's plan {decision} would not "
+                             f"act on the prediction")
+    trace = EventTrace(np.array([date]), np.array([FAULT_PRED], np.int8),
+                       horizon=1e9)
+    # Steps before the periodic save, 5 more up to the proactive save, and
+    # 3 after the rollback to it.
+    n_steps = round((first_save_end - c) / STEP_TIME) + 5 + 3
+    return trace, n_steps
+
+
+def phase_trainer(root: str, errs: dict) -> dict:
+    """The slice's main path: the full-width trainer through a periodic
+    save, a trusted prediction's proactive save and a delta rollback.
+    Before the run, the step's time and where it goes.  Inside the run,
+    through the manager's hooks: the kernels held to plain and timed at
+    the proactive save, and the delta restore held to the saved state."""
+    import math
+
+    import torch
+    from repro_torch.ckpt.manager import state_bytes
+    from repro_torch.ft.scheduler import CheckpointScheduler
+    from repro_torch.kernels import ckpt_delta as cd
+    from repro_torch.launch.train import cli_platform
+    from repro_torch.models.model import loss_fn
+    from repro_torch.tree import flatten, leaf_names
+
+    decision = CheckpointScheduler(cli_platform(STEP_TIME, MTBF), 1).decision
+    trace, n_steps = _fault_trace_for(decision)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = _full_width_trainer(os.path.join(root, "trainer"), trace)
+    torch.cuda.synchronize()
+    if tr.scheduler.decision != decision:
+        raise AssertionError("the trainer planned another schedule")
+    nbytes = state_bytes(tr.state)
+    cfg = tr.cfg
+    n_params = sum(t.numel() for t in flatten(tr.state["params"]))
+    log(f"[trainer] {cfg.name}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}; {n_params} params; train "
+        f"state {nbytes} bytes; built on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    # Two fulls, the .tmp of a third, a delta, and slack.
+    _disk_check(root, int(3.5 * nbytes))
+    step_ms = _step_ms(tr)
+    _step_breakdown(tr)
+
+    # Record every save's SaveInfo and time every restore; check the
+    # kernels at the proactive save and the restored state after the
+    # restore (neither check is inside the times the manager reports).
+    bf16_leaf = leaf_names(tr.state).index(BF16_LEAF)
+    saves, restores, held = [], [], {}
+    mgr = tr.manager
+    save, save_pro, restore = mgr.save, mgr.save_proactive, mgr.restore
+
+    def full_save(step, state):
+        saves.append(save(step, state))
+        held["bf16_base"] = flatten(state)[bf16_leaf].clone()
+        return saves[-1]
+
+    def proactive_save(step, state):
+        if "bf16_base" not in held:
+            raise AssertionError("a proactive save before any full save")
+        held["saved"] = _check_proactive(tr, state, held["bf16_base"], errs)
+        held["timing"] = held["saved"].pop("timing")
+        saves.append(save_pro(step, state))
+        return saves[-1]
+
+    def timed_restore(**kw):
+        t0 = time.perf_counter()
+        out = restore(**kw)
+        torch.cuda.synchronize()
+        restores.append((out[0], time.perf_counter() - t0))
+        held["worst"] = _check_restored(out[1], held.pop("saved"))
+        return out
+
+    mgr.save, mgr.save_proactive = full_save, proactive_save
+    mgr.restore = timed_restore
+    with torch.no_grad():
+        first_loss = float(loss_fn(tr.cfg, tr.state["params"],
+                                   tr.data.batch_at(0))[1]["loss"])
+
+    cd.quantize_delta.launches = 0
+    cd.dequantize_delta.launches = 0
+    t0 = time.perf_counter()
+    stats = tr.run(n_steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"quantize_delta": cd.quantize_delta.launches,
+                "dequantize_delta": cd.dequantize_delta.launches}
+
+    log(f"[trainer] plan: period T* {decision.period!r} s, beta_lim "
+        f"{decision.beta_lim!r} s, use_predictions "
+        f"{decision.use_predictions}; fault (predicted) at "
+        f"{float(trace.times[0])!r} s; {n_steps} steps")
+    log(f"[trainer] {json.dumps(dataclasses.asdict(stats))}")
+    log(f"[trainer] measured waste {stats.waste!r}, analytic "
+        f"{decision.expected_waste!r}; loss {first_loss!r} -> "
+        f"{stats.final_loss!r}; wall {wall:.3f} s (checks and kernel "
+        f"timing included); step {step_ms:.3f} ms, "
+        f"{SEQ * BATCH / step_ms * 1e3:.1f} tokens/s")
+    for info in saves:
+        log(f"[trainer] {info.kind} save at step {info.step}: {info.bytes} "
+            f"bytes in {info.seconds:.3f} s "
+            f"({info.bytes / info.seconds / 1e9:.3f} GB/s)")
+    for step, secs in restores:
+        log(f"[trainer] restore of step {step}: {secs:.3f} s")
+    c, cp = mgr.modeled_costs(tr.state)
+    log(f"[trainer] measured delta ratio {mgr.measured_delta_ratio!r}; "
+        f"modeled C {c!r} s, C_p {cp!r} s at {mgr.bandwidth:.3g} B/s")
+    log(f"[trainer] kernel launches on this path: {launches}; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    kinds = [i.kind for i in saves]
+    if not (stats.n_periodic >= 2 and "full" in kinds[:-1]):
+        raise AssertionError("no periodic full save before the end")
+    if not (stats.n_proactive == 1 and stats.n_trusted_true == 1
+            and kinds.count("proactive") == 1):
+        raise AssertionError("no trusted true prediction with a proactive "
+                             "(delta) save")
+    if not (stats.n_rollbacks == 1 and len(restores) == 1
+            and restores[0][0] == saves[kinds.index("proactive")].step
+            and "worst" in held):
+        raise AssertionError("the fault did not roll back to the delta")
+    log(f"[trainer] the delta restore against the state the proactive save "
+        f"wrote: quantized leaves within scale/2 (+4 ulps; worst "
+        f"{held['worst']:.4f} of the bound), raw leaves ==")
+    if launches["quantize_delta"] != 24 or launches["dequantize_delta"] != 24:
+        raise AssertionError(f"the trainer's save and restore did not run "
+                             f"the kernels on the 24 leaves: {launches}")
+    if not (math.isfinite(stats.final_loss)
+            and stats.final_loss < first_loss):
+        raise AssertionError(f"loss {first_loss} -> {stats.final_loss}")
+    timing = held["timing"]
+    del tr, held
+    _free_cuda()
+    shutil.rmtree(os.path.join(root, "trainer"))
+    return {"launches": launches, "timing": timing}
+
+
+def phase_trainer_cuda_cpu(root: str) -> None:
+    """The reduced trainer of tests/test_ft.py on CUDA and on the CPU."""
+    import math
+
+    import numpy as np
+    from repro_torch.configs import get
+    from repro_torch.configs.base import InputShape, PlatformConfig
+    from repro_torch.core.traces import Exponential, make_event_trace
+    from repro_torch.train import FaultTolerantTrainer
+    from repro_torch.tree import tree_map
+
+    cfg = get("llama3.2-1b").reduced()
+    shape = InputShape("t", 64, 4, "train")
+    plat = PlatformConfig(mu_ind=300.0, c=30.0, cp=10.0, d=5.0, r=15.0,
+                          recall=0.85, precision=0.82)
+    trace = make_event_trace(Exponential(1.0), 300.0, 0.85, 0.82,
+                             horizon=1e5, rng=np.random.default_rng(3))
+    trainers = {device: FaultTolerantTrainer(
+        cfg, shape, plat, workdir=os.path.join(root, device), step_time=10.0,
+        trace=trace, seed=0, device=device) for device in ("cuda", "cpu")}
+    trainers["cpu"].state = tree_map(lambda t: t.cpu(),
+                                     trainers["cuda"].state)
+    runs, restored = {}, {}
+    for device, tr in trainers.items():
+        restored[device] = _record_restores(tr.manager)
+        t0 = time.perf_counter()
+        runs[device] = (tr.run(30), time.perf_counter() - t0)
+    (gpu, t_gpu), (cpu, t_cpu) = runs["cuda"], runs["cpu"]
+    for f in dataclasses.fields(gpu):
+        if f.name != "final_loss" \
+                and getattr(gpu, f.name) != getattr(cpu, f.name):
+            raise AssertionError(f"reduced trainer: {f.name} CUDA "
+                                 f"{getattr(gpu, f.name)!r} != CPU "
+                                 f"{getattr(cpu, f.name)!r}")
+    if not any(kind == "delta" for _, kind in restored["cuda"]):
+        raise AssertionError(f"reduced trainer restored no delta: "
+                             f"{restored['cuda']}")
+    if restored["cuda"] != restored["cpu"]:
+        raise AssertionError(f"reduced trainer restored {restored['cuda']} "
+                             f"on CUDA, {restored['cpu']} on the CPU")
+    rel = abs(gpu.final_loss - cpu.final_loss) / abs(cpu.final_loss)
+    if not (math.isfinite(gpu.final_loss) and rel <= LOSS_RTOL_BF16):
+        raise AssertionError(f"reduced trainer final loss CUDA "
+                             f"{gpu.final_loss} vs CPU {cpu.final_loss} "
+                             f"(rel {rel:.3e} > {LOSS_RTOL_BF16})")
+    log(f"[cuda-cpu] {cfg.name}, 30 steps: every TrainerStats counter and "
+        f"virtual time CUDA == CPU ({gpu.n_faults} faults, "
+        f"{gpu.n_proactive} proactive, {gpu.n_periodic} periodic; restores "
+        f"of (step, kind) {restored['cuda']} on both); final loss "
+        f"{gpu.final_loss!r} vs {cpu.final_loss!r} (rel {rel:.2e}, limit "
+        f"{LOSS_RTOL_BF16}); cuda {t_gpu:.2f} s, cpu {t_cpu:.2f} s")
+
+
+def _record_restores(mgr) -> list:
+    """Wrap ``mgr.restore`` to append the (step, kind) of each restore to
+    the list it returns."""
+    kinds, restore = [], mgr.restore
+
+    def recorded(**kw):
+        on_disk = dict(mgr.checkpoints())
+        out = restore(**kw)
+        kinds.append((out[0], on_disk[out[0]]))
+        return out
+
+    mgr.restore = recorded
+    return kinds
+
+
 def main() -> int:
     t_start = time.perf_counter()
     device = phase_device()
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     phase_build()
     study = study_setup()
     max_err = phase_kernel((300, 4800, study["n_lanes"], BIG_LANES))
@@ -393,15 +919,32 @@ def main() -> int:
     phase_scale()
     timing = phase_timing(study["n_lanes"])
     max_err = max(max_err, timing["max_abs_err"])
+    log(f"[done] simulation phases {time.perf_counter() - t_start:.1f} s")
+    errs = {"quantize_delta": 0.0, "dequantize_delta": 0.0}
+    phase_ckpt_kernels(errs)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as root:
+        trainer = phase_trainer(root, errs)
+        phase_trainer_cuda_cpu(root)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps({"kernels": [{
+    kernels = [{
         "name": "event_step", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/event_step.cu",
         "replaces": "src/repro/kernels/event_step.py:275",
         "launches": main_run["launches"], "max_abs_err": max_err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": None}]}))
+        "library_ms": None}]
+    for name, replaces in (("quantize_delta",
+                            "src/repro/kernels/ckpt_delta.py:54"),
+                           ("dequantize_delta",
+                            "src/repro/kernels/ckpt_delta.py:90")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ckpt_delta.cu",
+            "replaces": replaces, "launches": trainer["launches"][name],
+            "max_abs_err": errs[name], **trainer["timing"][name],
+            "library_ms": None})
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": device}))
     return 0
 

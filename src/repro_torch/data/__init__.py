@@ -1,0 +1,5 @@
+"""Synthetic deterministic LM data stream."""
+
+from .pipeline import DataConfig, SyntheticLM
+
+__all__ = ["DataConfig", "SyntheticLM"]

@@ -4,15 +4,18 @@
   ``chip_smoke.py`` finds no import of ``jax`` and none of ``repro`` /
   ``repro.*``.
 * A subprocess in which ``jax`` and ``repro`` cannot be imported at all
-  imports ``repro_torch`` and runs a tiny CPU grid; afterwards
-  ``sys.modules`` holds neither.
+  imports ``repro_torch``, runs a tiny CPU grid, and builds a tiny CPU
+  trainer that takes a step, a full and a proactive save and a restore;
+  afterwards ``sys.modules`` holds neither.
 * Without CUDA, an entry point called without ``device=`` raises instead
   of running on the CPU.
-* The constants the port re-declares equal the reference's.
+* The constants and configs the port re-declares equal the reference's.
 """
 
 import ast
+import dataclasses
 import os
+import tempfile
 import subprocess
 import sys
 from pathlib import Path
@@ -44,7 +47,10 @@ def _forbidden(name: str) -> bool:
 
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
-    assert {"batch_torch.py", "event_step.py", "chip_smoke.py"} <= names
+    assert {"batch_torch.py", "event_step.py", "chip_smoke.py",
+            "ckpt_delta.py", "manager.py", "loop.py", "transformer.py",
+            "adamw.py", "pipeline.py", "scheduler.py", "runtime.py",
+            "convert.py", "train.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -80,6 +86,27 @@ res = repro_torch.simulate_batch(
     [1200.0, 2000.0], cp=30.0, trust=ThresholdTrust(100.0),
     inexact_window=300.0, trace_seeds=[3, 4], device="cpu")
 assert res.makespan.shape == (2, 2) and (res.makespan > 10000.0).all()
+
+import dataclasses
+import tempfile
+
+from repro_torch.configs import get
+from repro_torch.configs.base import InputShape, PlatformConfig
+from repro_torch.train import FaultTolerantTrainer
+
+cfg = dataclasses.replace(get("tinyllama-1.1b").reduced(), n_layers=1,
+                          d_model=32, n_heads=2, n_kv_heads=1, head_dim=16,
+                          d_ff=64, vocab_size=64, dtype="float32")
+with tempfile.TemporaryDirectory() as d:
+    tr = FaultTolerantTrainer(cfg, InputShape("t", 8, 2, "train"),
+                              PlatformConfig(mu_ind=300.0, c=30.0, cp=10.0,
+                                             d=5.0, r=15.0),
+                              workdir=d, step_time=10.0, device="cpu")
+    stats = tr.run(1)
+    assert stats.n_steps == 1 and stats.n_periodic == 1
+    tr.manager.save_proactive(2, tr.state)
+    step, _ = tr.manager.restore(like=tr.state)
+    assert step == 2
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not leaked, leaked
@@ -104,7 +131,12 @@ def _entry_points():
     from repro_torch.core.simulator import NeverTrust
     from repro_torch.core.traces import EventTrace
     from repro_torch.core.waste import Platform
+    from repro_torch.configs import get
+    from repro_torch.configs.base import InputShape, PlatformConfig
     from repro_torch.experiments import evaluate_strategies
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.models.model import init_params
+    from repro_torch.train import FaultTolerantTrainer
 
     plat = Platform(mu=2500.0, c=60.0, d=10.0, r=30.0)
     trace = EventTrace(np.array([500.0]), np.zeros(1, dtype=np.int8), 1e5)
@@ -122,11 +154,19 @@ def _entry_points():
             None, plat, 1000.0, np.zeros(1, np.int64), np.full(1, 600.0),
             np.zeros(1, np.int8), np.zeros(1), np.zeros(1),
             np.zeros(1, np.int64), 30.0),
+        "FaultTolerantTrainer": lambda: FaultTolerantTrainer(
+            get("tinyllama-1.1b").reduced(), InputShape("t", 8, 1, "train"),
+            PlatformConfig(c=30.0, cp=10.0), workdir=tempfile.mkdtemp()),
+        "init_params": lambda: init_params(get("tinyllama-1.1b").reduced()),
+        "params_from_numpy": lambda: params_from_numpy(
+            {"w": np.zeros((2, 2), np.float32)}),
     }
 
 
 @pytest.mark.parametrize("entry", ["simulate_batch", "simulate_lanes",
-                                   "evaluate_strategies", "run_lanes_torch"])
+                                   "evaluate_strategies", "run_lanes_torch",
+                                   "FaultTolerantTrainer", "init_params",
+                                   "params_from_numpy"])
 def test_no_silent_cpu_fallback(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -174,3 +214,51 @@ def test_redeclared_constants_match_reference():
     for name in ("_PC_POP", "_PC_FAULT", "_PC_PRED", "_PC_FINAL",
                  "_PC_SILENT", "_DEF_SLOTS", "_ADV_PASSES", "_BIG_SEQ"):
         assert getattr(bt, name) == getattr(ref_bj, name), name
+
+
+def test_redeclared_checkpoint_constants_match_reference(tmp_path):
+    pytest.importorskip("jax")
+    import repro.ckpt.manager as ref_manager
+    import repro.kernels.ckpt_delta as ref_delta
+
+    import repro_torch.ckpt.manager as manager
+    import repro_torch.kernels.ckpt_delta as delta
+
+    assert delta.BLOCK == ref_delta.BLOCK == 256
+    assert manager.DELTA_RATIO_PRIOR == ref_manager.DELTA_RATIO_PRIOR
+    port = manager.CheckpointManager(str(tmp_path / "p"))
+    ref = ref_manager.CheckpointManager(str(tmp_path / "r"))
+    assert port.block == ref.block and port.keep == ref.keep
+    assert port.bandwidth == ref.bandwidth
+    for step in (0, 7, 12345678):
+        assert os.path.basename(port._full_path(step)) \
+            == os.path.basename(ref._full_path(step))
+        assert os.path.basename(port._delta_path(step)) \
+            == os.path.basename(ref._delta_path(step))
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "llama3.2-1b"])
+def test_copied_configs_match_reference(arch):
+    pytest.importorskip("jax")
+    from repro.configs import get as ref_get
+    from repro.configs.base import SHAPES as REF_SHAPES
+    from repro.configs.base import PlatformConfig as RefPlatform
+    from repro.configs.paper import SYNTHETIC as REF_SYNTHETIC
+
+    from repro_torch.configs import get
+    from repro_torch.configs.base import SHAPES, PlatformConfig
+    from repro_torch.configs.paper import SYNTHETIC
+
+    port, ref = get(arch), ref_get(arch)
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert dataclasses.asdict(port.reduced()) \
+        == dataclasses.asdict(ref.reduced())
+    assert port.param_count() == ref.param_count()
+    assert {k: dataclasses.asdict(v) for k, v in SHAPES.items()} \
+        == {k: dataclasses.asdict(v) for k, v in REF_SHAPES.items()}
+    long = SHAPES["long_500k"]
+    assert dataclasses.asdict(port.for_shape(long)) \
+        == dataclasses.asdict(ref.for_shape(REF_SHAPES["long_500k"]))
+    assert dataclasses.asdict(PlatformConfig()) \
+        == dataclasses.asdict(RefPlatform())
+    assert dataclasses.asdict(SYNTHETIC) == dataclasses.asdict(REF_SYNTHETIC)
