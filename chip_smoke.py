@@ -6,10 +6,12 @@ Phases (any failure raises; the script then exits non-zero and prints no
 result):
 
 1. device    - require CUDA; print the card's name and power limit.
-2. build     - build both CUDA sources (event_step.cu, ckpt_delta.cu)
-               from the checkout with nvcc, one process each, started
-               together; the event_step PTX has no fma, the ckpt_delta PTX
-               divides with div.rn.f32, rounds with cvt.rni and has no fma.
+2. build     - build every CUDA source (event_step.cu, ckpt_delta.cu,
+               flash_attention.cu, decode_attention.cu) from the checkout
+               with nvcc, one process each, started together; the
+               event_step PTX has no fma, the ckpt_delta PTX divides with
+               div.rn.f32, rounds with cvt.rni and has no fma; the attention
+               PTX divides with div.rn.f32 (no fast-math division).
 3. kernel    - event_step against its plain torch version on the same
                CUDA tensors, ``==`` on the bits, at 300, 4,800, the main
                path's 5,200 and 65,536 lanes with 1 and 4 passes.
@@ -53,8 +55,47 @@ result):
                initial state: every TrainerStats counter and virtual time
                and the (step, kind) of every restore ``==`` (one of them is
                from a delta), final loss within 1e-3 relative (bf16).
+10. attention kernels - flash_attention and decode_attention against their
+               plain versions on the card, on the reference's cases
+               (``tests/test_kernels.py``: FLASH_CASES and seq 96,
+               DECODE_CASES and per-batch lengths 1/64/128) and one case
+               each at the main path's heads (g = 8) and lengths (flash at
+               seq 2,048; decode over a cache of 2,176, 34 splits, ragged
+               lengths), float32 at 2e-6 and bfloat16 to one bf16 ulp.
+11. serving   - the slice's main path: ServingEngine on tinyllama-1.1b at
+               full width (bf16, attn_impl="pallas", cache_len 2176),
+               batch 8, prompt 2,048, 128 new tokens, greedy; prefill s,
+               decode ms per step, tokens/s, peak memory and a profiled
+               window of decode steps; decode_attention launches set to 0
+               before the generate and read after (22 x 128).  A second,
+               checked generate: hooks hold the kernel to its plain version
+               on every layer's inputs at the first and last step (one
+               bf16 ulp; the last step's inputs also cast to float32, at
+               2e-6), and the generated tokens, teacher-forced through
+               attn_impl="ref", give each step's logits within 2e-2 of the
+               largest.  The kernel timed on the last step's inputs of all
+               22 layers in turn (L2 cold, as in a step) beside its plain
+               version, scaled_dot_product_attention and its bytes bound.
+               Then forward_train over the prompts with attn_impl="pallas":
+               22 flash_attention launches, logits within 2e-2 of the
+               largest of attn_impl="ref"; on layer 0's inputs the kernel
+               held to plain with repeat_kv and with the grouped layout
+               (g = 8, the same bits), in bf16 (one ulp) and cast to
+               float32 (2e-6), and timed beside its plain version,
+               scaled_dot_product_attention and its bound.
+12. serving f32 - phase 11's checks at full width in float32, where
+               rounding leaves room for a limit that a faulty kernel would
+               cross: the checked generate (decode kernel within 2e-6 of
+               plain) with the ref route teacher-forced over its tokens,
+               and forward_train through the flash kernel (22 launches),
+               both within 1e-4 of the ref route's largest logit.
+13. serving cuda vs cpu - reduced llama3.2-1b in float32 (batch 3, prompt
+               24, 8 new tokens, cache_len 48, as ``tests/test_serve.py``)
+               with attn_impl="pallas" on CUDA (the kernel) and on the CPU
+               (its plain version): greedy tokens ``==``, logprobs within
+               1e-4.
 
-The last two lines are the ``kernels`` JSON line and
+The last two lines are the ``kernels`` JSON line (all five kernels) and
 ``{"ok": true, "device": {...}}``.  Run from a checkout: it imports the
 port from ``src/`` beside it and builds into ``build/repro_torch/``.  The
 checkpoint phases write about 27 GB into a temporary directory (under
@@ -79,9 +120,13 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): memory rate for the bytes
-# bound, float64 outside the tensor cores for the operations bound.
+# bound, float64 outside the tensor cores for the operations bound of the
+# float64 lane step; bf16 dense tensor cores for attention on bf16 inputs
+# (the input type's peak), float32 outside the tensor cores beside it.
 HBM_BYTES_PER_S = 3.35e12
 FP64_FLOP_PER_S = 34e12
+BF16_FLOP_PER_S = 989e12
+FP32_FLOP_PER_S = 67e12
 # The kernel-check platform of the random states (event_step.random_state).
 KW = dict(c=60.0, cp=30.0, d=10.0, r=30.0, time_base=4000.0)
 N_TRACES = 200          # BENCH_simulator.json's bank
@@ -139,6 +184,8 @@ PTX_RULES = {
     "event_step": ((), ("fma.rn.f64",)),
     "ckpt_delta": (("div.rn.f32", "cvt.rni.f32.f32"),
                    ("fma.rn.f32", "div.approx", "div.full")),
+    "flash_attention": (("div.rn.f32",), ("div.approx", "div.full")),
+    "decode_attention": (("div.rn.f32",), ("div.approx", "div.full")),
 }
 
 
@@ -906,6 +953,526 @@ def _record_restores(mgr) -> list:
     return kinds
 
 
+# -- the serving path (flash_attention and decode_attention kernels) ----------
+
+# The reference's kernel cases (tests/test_kernels.py:17-115), and one case
+# of each kernel at the main path's heads (g = 8) and lengths.
+FLASH_CASES = (
+    # (b, sq, skv, h, kv, hd, causal, window, q_offset)
+    (2, 128, 128, 4, 4, 64, True, 0, 0), (2, 128, 128, 4, 2, 64, True, 0, 0),
+    (1, 256, 256, 8, 1, 64, True, 0, 0), (1, 128, 128, 4, 2, 64, True, 64, 0),
+    (2, 128, 256, 4, 2, 32, True, 0, 128),
+    (2, 128, 128, 4, 4, 64, False, 0, 0), (1, 64, 64, 2, 2, 128, True, 0, 0),
+    (1, 96, 96, 2, 2, 32, True, 0, 0), (1, 2048, 2048, 32, 4, 64, True, 0, 0))
+DECODE_CASES = (
+    # (b, s, h, kv, hd, window, lengths)
+    (2, 256, 8, 2, 64, 0, (200, 200)), (2, 256, 8, 8, 64, 0, (17, 17)),
+    (3, 128, 10, 1, 32, 64, (100, 100, 100)), (1, 512, 4, 4, 128, 0, (512,)),
+    (2, 128, 4, 2, 64, 128, (40, 40)), (3, 128, 4, 2, 32, 0, (1, 64, 128)),
+    (8, 2176, 32, 4, 64, 0, (2176, 2175, 2113, 2049, 2048, 1000, 64, 1)))
+# Kernel against plain, as (atol, rtol): float32 at the reference's 2e-6;
+# bfloat16 to one bf16 ulp, since kernel and plain each round one float32
+# result to bf16 once (atol for values near 0).
+ATTN_TOL = {"float32": (2e-6, 2e-6), "bfloat16": (1e-6, 2.0 ** -7)}
+SERVE_BATCH, PROMPT, NEW_TOKENS = 8, 2048, 128
+SERVE_CACHE = PROMPT + NEW_TOKENS    # 2176
+# The kernel route's logits against the "ref" route's, as a share of the
+# largest |logit|.  bfloat16: the rule of tests/test_torch_model.py:130,
+# which bf16 rounding through 22 layers alone nearly fills; float32: a
+# limit that separates a faulty kernel from rounding.
+LOGIT_RTOL = {"bfloat16": 2e-2, "float32": 1e-4}
+
+
+def _check_close(got, want, tol: tuple, what: str) -> float:
+    """|got - want| <= atol + rtol * |want| everywhere (in float32), with
+    ``tol = (atol, rtol)``; returns the largest absolute difference."""
+    import torch
+    atol, rtol = tol
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    if not (bool(torch.isfinite(got).all())
+            and bool((err <= atol + rtol * want.abs()).all())):
+        raise AssertionError(f"{what}: kernel != plain (largest difference "
+                             f"{float(err.max())}, atol {atol}, rtol {rtol})")
+    return float(err.max())
+
+
+def _randn(shape, dtype, seed: int):
+    import numpy as np
+    import torch
+    g = np.random.default_rng(seed)
+    return torch.from_numpy(g.standard_normal(shape).astype(np.float32)) \
+        .to(getattr(torch, dtype)).cuda()
+
+
+def phase_attention_kernels(errs: dict) -> None:
+    """Both attention kernels against their plain versions on the
+    reference's cases and one at the main path's shapes, float32 and
+    bfloat16."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    worst = {}
+    for dtype, tol in ATTN_TOL.items():
+        for case in FLASH_CASES:
+            b, sq, skv, h, kv, hd, causal, window, q_offset = case
+            q = _randn((b, sq, h, hd), dtype, 0)
+            k = _randn((b, skv, kv, hd), dtype, 1)
+            v = _randn((b, skv, kv, hd), dtype, 2)
+            kw = dict(causal=causal, window=window, q_offset=q_offset)
+            out = fa.flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = _check_close(out, fa.flash_attention_ref(q, k, v, **kw),
+                               tol, f"flash_attention {case} {dtype}")
+            key = ("flash_attention", dtype)
+            worst[key] = max(worst.get(key, 0.0), err)
+        for b, s, h, kv, hd, window, lengths in DECODE_CASES:
+            q = _randn((b, 1, h, hd), dtype, 3)
+            kc = _randn((b, s, kv, hd), dtype, 4)
+            vc = _randn((b, s, kv, hd), dtype, 5)
+            n = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+            out = da.decode_attention(q, kc, vc, n, window=window)
+            torch.cuda.synchronize()
+            err = _check_close(
+                out, da.decode_attention_ref(q, kc, vc, n, window=window),
+                tol, f"decode_attention {(b, s, h, kv, hd, window, lengths)}"
+                     f" {dtype}")
+            key = ("decode_attention", dtype)
+            worst[key] = max(worst.get(key, 0.0), err)
+    for (name, _), err in worst.items():
+        errs[name] = max(errs[name], err)
+    log(f"[attn-kernels] flash_attention on {len(FLASH_CASES)} cases and "
+        f"decode_attention on {len(DECODE_CASES)} cases, float32 (2e-6) and "
+        f"bfloat16 (one bf16 ulp): kernel == plain within tolerance; "
+        f"largest differences "
+        f"{ {f'{n} {d}': e for (n, d), e in worst.items()} }")
+
+
+def _serving_setup(dtype: str):
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.configs.base import InputShape
+    from repro_torch.models.model import init_params, make_batch
+    from repro_torch.serve import ServingEngine
+    cfg = dataclasses.replace(get(ARCH), attn_impl="pallas", dtype=dtype)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    batch = make_batch(cfg, InputShape("serve", PROMPT, SERVE_BATCH,
+                                       "prefill"), gen)
+    engine = ServingEngine(cfg, params, cache_len=SERVE_CACHE)
+    torch.cuda.synchronize()
+    log(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, head_dim {cfg.head_dim}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}, attn_impl "
+        f"{cfg.attn_impl}, attn_layout {cfg.attn_layout}; batch "
+        f"{SERVE_BATCH}, prompt {PROMPT}, {NEW_TOKENS} new tokens, cache_len "
+        f"{SERVE_CACHE}; built on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return cfg, params, batch, engine
+
+
+def _profile_decode(engine, batch, n_steps: int = 8) -> None:
+    """Device busy share over a window of decode steps (profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    logits, cache = engine.prefill(batch)
+    tok = torch.argmax(logits.float(), dim=-1).to(torch.int32)
+    gen = torch.Generator(device="cuda")
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            tok, _, cache = engine._step(tok, cache, 0.0, gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = _device_rows(prof)
+    busy = sum(r[0] for r in rows) / 1e6
+    events = sum(r[2] for r in rows)
+    log(f"[serve] {n_steps} profiled decode steps: wall {wall * 1e3:.3f} ms "
+        f"({wall / n_steps * 1e3:.3f} ms a step), device busy "
+        f"{busy * 1e3:.3f} ms ({busy / wall:.3f} of wall), {events} device "
+        f"events ({events / n_steps:.1f} a step)")
+    for dev_us, key, count in sorted(rows, reverse=True)[:8]:
+        log(f"[serve]   {dev_us / 1e3:10.3f} ms  {count:6d}x  {key[:70]}")
+
+
+def _time_attention(name: str, kernel, plain, library, bound: dict,
+                    reps: int, plain_reps: int, per_call: int = 1) -> dict:
+    """Kernel, plain version and library call by CUDA events; each of the
+    three runs ``per_call`` calls, and the times are per call."""
+    ms = _time_ms(kernel, reps) / per_call
+    plain_ms = _time_ms(plain, plain_reps) / per_call
+    library_ms = _time_ms(library, reps) / per_call
+    log(f"[timing] {name}: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
+        f"scaled_dot_product_attention {library_ms:.5f} ms, bound "
+        f"{bound['bound_ms']:.6f} ms by {bound['bound_by']} "
+        f"({bound['note']}); kernel at {bound['bound_ms'] / ms:.4f} of the "
+        f"bound")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
+
+
+def _time_decode(layers: list) -> dict:
+    """decode_attention over the last decode step's inputs of every layer
+    in turn (22 x 17.9 MB of caches, so L2 is cold as in a decode step),
+    per call, beside its plain version, SDPA and the bytes bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    q, kc, _, n = layers[0]
+    g = q.shape[2] // kc.shape[2]
+    nbytes = da.bytes_moved(q, kc, n)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    # The library call: SDPA over the same caches (head-major views, the
+    # kv heads repeated outside the timed call) with the length mask.
+    mask = (torch.arange(kc.shape[1], device="cuda")[None, :]
+            < n[:, None])[:, None, None, :]
+    sdpa_in = [(q.transpose(1, 2),
+                kc.transpose(1, 2).repeat_interleave(g, dim=1),
+                vc.transpose(1, 2).repeat_interleave(g, dim=1))
+               for q, kc, vc, _ in layers]
+    per = len(layers)
+    launches = da.decode_attention.launches
+    out = _time_attention(
+        f"decode_attention at the last decode step, over the {per} layers' "
+        f"inputs in turn (each: q {tuple(q.shape)}, caches "
+        f"{tuple(kc.shape)}, length {int(n[0])}), per call",
+        lambda: [da.decode_attention(*x) for x in layers],
+        lambda: [da.decode_attention_ref(*x) for x in layers],
+        lambda: [F.scaled_dot_product_attention(*x, attn_mask=mask)
+                 for x in sdpa_in],
+        {"bound_ms": bound_ms, "bound_by": "bytes",
+         "note": f"{nbytes} bytes at {HBM_BYTES_PER_S:.3g} B/s"}, 20, 3,
+        per_call=per)
+    da.decode_attention.launches = launches       # timing does not count
+    return out
+
+
+def _time_flash(q, k, v) -> dict:
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    ops = fa.flops(tuple(q.shape), k.shape[1], causal=True)
+    ops_ms = ops / BF16_FLOP_PER_S * 1e3
+    nbytes = fa.bytes_moved(q, k, v)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound = {"bound_ms": max(ops_ms, bytes_ms),
+             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+             "note": f"{ops} flops at the bf16 tensor-core peak "
+                     f"{BF16_FLOP_PER_S:.3g}/s = {ops_ms:.6f} ms (at the fp32 "
+                     f"CUDA-core peak {FP32_FLOP_PER_S:.3g}/s: "
+                     f"{ops / FP32_FLOP_PER_S * 1e3:.6f} ms); {nbytes} bytes "
+                     f"= {bytes_ms:.6f} ms"}
+    qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
+    launches = fa.flash_attention.launches
+    out = _time_attention(
+        f"flash_attention in forward_train (layer 0: q, k, v "
+        f"{tuple(q.shape)}, causal)",
+        lambda: fa.flash_attention(q, k, v),
+        lambda: fa.flash_attention_ref(q, k, v),
+        lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True),
+        bound, 5, 2)
+    fa.flash_attention.launches = launches        # timing does not count
+    return out
+
+
+def _generate_checked(cfg, engine, batch, errs: dict) -> tuple:
+    """A generate whose decode kernel is held to its plain version on every
+    layer's inputs at the first and last step (ATTN_TOL of the model's
+    dtype) and whose steps' logits are kept: (result, step logits, the
+    last step's (q, k cache, v cache, length) of every layer)."""
+    import repro_torch.serve.engine as engine_mod
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+    calls, held, step_logits = [0], [], []
+    decode_kernel, decode_step = ops.decode_attention, engine_mod.decode_step
+
+    def checked(q, kc, vc, n, *, window=0, impl="ref"):
+        out = decode_kernel(q, kc, vc, n, window=window, impl=impl)
+        step, layer = divmod(calls[0], cfg.n_layers)
+        calls[0] += 1
+        if step in (0, NEW_TOKENS - 1):
+            errs["decode_attention"] = max(
+                errs["decode_attention"], _check_close(
+                    out, da.decode_attention_ref(q, kc, vc, n, window=window),
+                    ATTN_TOL[cfg.dtype],
+                    f"{cfg.dtype} decode step {step} layer {layer}"))
+            if step == NEW_TOKENS - 1:        # the caches are final
+                held.append((q.clone(), kc, vc, n))
+        return out
+
+    def recorded(*args):
+        logits, cache = decode_step(*args)
+        step_logits.append(logits.float())
+        return logits, cache
+
+    ops.decode_attention, engine_mod.decode_step = checked, recorded
+    try:
+        res = engine.generate(batch, NEW_TOKENS)
+    finally:
+        ops.decode_attention, engine_mod.decode_step = decode_kernel, \
+            decode_step
+    return res, step_logits, held
+
+
+def _teacher_forced(cfg, params, batch, tokens, step_logits) -> float:
+    """The "ref" route teacher-forced over the kernel route's ``tokens``:
+    every step's logits within LOGIT_RTOL[cfg.dtype] of the largest
+    |logit| of the kernel route's; returns the worst share."""
+    import torch
+    from repro_torch.models import transformer as tf
+    limit = LOGIT_RTOL[cfg.dtype]
+    cfg_ref = dataclasses.replace(cfg, attn_impl="ref")
+    worst = 0.0
+    with torch.no_grad():
+        logits, cache = tf.prefill(cfg_ref, params, batch,
+                                   cache_len=SERVE_CACHE)
+        tok = torch.argmax(logits.float(), dim=-1).to(torch.int32)
+        for i in range(NEW_TOKENS):
+            logits, cache = tf.decode_step(cfg_ref, params, tok, cache)
+            want_l = logits.float()
+            diff = float((step_logits[i] - want_l).abs().max())
+            scale = float(want_l.abs().max())
+            worst = max(worst, diff / scale)
+            if diff > limit * scale:
+                raise AssertionError(f"{cfg.dtype} decode step {i}: kernel "
+                                     f"route logits off the ref route's by "
+                                     f"{diff} (largest |logit| {scale})")
+            tok = tokens[:, i]
+    log(f"[serve] {cfg.dtype}: ref route teacher-forced over the "
+        f"{NEW_TOKENS} generated tokens: every step's logits within {limit} "
+        f"of the largest (worst {worst:.3e} of it)")
+    return worst
+
+
+def _hold_decode_f32(layers: list, errs: dict) -> float:
+    """The decode kernel against its plain version in float32 on every
+    layer's last-step inputs, at 2e-6; returns the largest difference."""
+    from repro_torch.kernels import decode_attention as da
+    launches, worst = da.decode_attention.launches, 0.0
+    for i, (q, kc, vc, n) in enumerate(layers):
+        qf, kf, vf = q.float(), kc.float(), vc.float()
+        worst = max(worst, _check_close(
+            da.decode_attention(qf, kf, vf, n),
+            da.decode_attention_ref(qf, kf, vf, n), ATTN_TOL["float32"],
+            f"float32 decode, last step, layer {i}"))
+    errs["decode_attention"] = max(errs["decode_attention"], worst)
+    da.decode_attention.launches = launches       # checks do not count
+    return worst
+
+
+def phase_serving(errs: dict) -> dict:
+    """The slice's main path at full width in bf16: generate with the
+    decode kernel (counted), then a checked generate, the ref route
+    teacher-forced over its tokens, and forward_train through the flash
+    kernel (:func:`_serve_forward`)."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+
+    cfg, params, batch, engine = _serving_setup("bfloat16")
+    engine.generate(batch, 2)                      # warm up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.prefill(batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    da.decode_attention.launches = 0
+    t0 = time.perf_counter()
+    res = engine.generate(batch, NEW_TOKENS)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = da.decode_attention.launches
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = (gen_s - prefill_s) / NEW_TOKENS * 1e3
+    log(f"[serve] prefill {prefill_s:.4f} s "
+        f"({SERVE_BATCH * PROMPT / prefill_s:.1f} prompt tokens/s); generate "
+        f"{gen_s:.4f} s: decode {step_ms:.4f} ms per step, "
+        f"{SERVE_BATCH * NEW_TOKENS / gen_s:.1f} generated tokens/s "
+        f"(prefill included), {SERVE_BATCH / step_ms * 1e3:.1f} tokens/s in "
+        f"decode; peak device memory {peak / 1e9:.3f} GB; decode_attention "
+        f"launches {launches}")
+    want = cfg.n_layers * NEW_TOKENS
+    if launches != want:
+        raise AssertionError(f"decode_attention launched {launches} times "
+                             f"in the generate, not {want}")
+    if not (res.tokens.shape == (SERVE_BATCH, NEW_TOKENS)
+            and bool(torch.isfinite(res.logprobs).all())
+            and float(res.logprobs.max()) <= 0.0
+            and int(res.tokens.min()) >= 0
+            and int(res.tokens.max()) < cfg.vocab_size):
+        raise AssertionError("generate: tokens or logprobs out of range")
+    _profile_decode(engine, batch)
+
+    res2, step_logits, held = _generate_checked(cfg, engine, batch, errs)
+    if not torch.equal(res2.tokens, res.tokens):
+        raise AssertionError("the checked generate gave other tokens")
+    err32 = _hold_decode_f32(held, errs)
+    log(f"[serve] checked generate: decode_attention kernel == plain to one "
+        f"bf16 ulp on all {cfg.n_layers} layers at steps 1 and {NEW_TOKENS},"
+        f" and within 2e-6 on the last step's inputs cast to float32 "
+        f"(largest difference {err32}); same tokens as the counted run")
+    _teacher_forced(cfg, params, batch, res.tokens, step_logits)
+    del step_logits
+    decode_timing = _time_decode(held)
+
+    flash = _serve_forward(cfg, params, batch, errs)
+    del engine, params, batch, res, res2, held
+    _free_cuda()
+    return {"launches": {"decode_attention": launches,
+                         "flash_attention": flash["launches"]},
+            "timing": {"decode_attention": decode_timing,
+                       "flash_attention": flash["timing"]}}
+
+
+def _forward_vs_ref(cfg, params, batch) -> tuple:
+    """forward_train over the prompts through the flash kernel (launches
+    counted, layer 0's q, k, v kept) against attn_impl="ref": logits
+    within LOGIT_RTOL[cfg.dtype] of the largest; returns (launches, layer
+    0's (q, k, v))."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+
+    held, flash_kernel = [], ops.flash_attention
+
+    def capture(q, k, v, **kw):
+        if not held:
+            held.append((q.clone(), k.clone(), v.clone()))
+        return flash_kernel(q, k, v, **kw)
+
+    fa.flash_attention.launches = 0
+    ops.flash_attention = capture
+    try:
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            logits_k, _ = tf.forward_train(cfg, params, batch)
+            torch.cuda.synchronize()
+            fwd_s = time.perf_counter() - t0
+    finally:
+        ops.flash_attention = flash_kernel
+    launches = fa.flash_attention.launches
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits_r, _ = tf.forward_train(
+            dataclasses.replace(cfg, attn_impl="ref"), params, batch)
+        torch.cuda.synchronize()
+        fwd_ref_s = time.perf_counter() - t0
+    diff = float((logits_k.float() - logits_r.float()).abs().max())
+    scale = float(logits_r.float().abs().max())
+    limit = LOGIT_RTOL[cfg.dtype]
+    log(f"[serve] {cfg.dtype} forward_train over the prompts: attn_impl="
+        f"pallas {fwd_s:.4f} s ({launches} flash_attention launches), "
+        f"attn_impl=ref {fwd_ref_s:.4f} s; logits differ by {diff} (largest "
+        f"|logit| {scale}, {diff / scale:.3e} of it; limit {limit})")
+    if launches != cfg.n_layers:
+        raise AssertionError(f"forward_train launched flash_attention "
+                             f"{launches} times, not {cfg.n_layers}")
+    if not (bool(torch.isfinite(logits_k).all()) and diff <= limit * scale):
+        raise AssertionError(f"{cfg.dtype} forward_train: kernel route "
+                             f"logits off the ref route's")
+    return launches, held[0]
+
+
+def _serve_forward(cfg, params, batch, errs: dict) -> dict:
+    """forward_train through the flash kernel against attn_impl="ref",
+    then the kernel held to plain on layer 0's inputs (bf16 and cast to
+    float32; repeat_kv and grouped) and timed there."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+
+    launches, (q, k, v) = _forward_vs_ref(cfg, params, batch)
+    # attn_layout="grouped": the same layer on its 4 kv heads (g = 8), which
+    # repeat_kv had expanded to 32; the kernel gives the same bits.
+    g = cfg.n_heads // cfg.n_kv_heads
+    kg, vg = k[:, :, ::g].contiguous(), v[:, :, ::g].contiguous()
+    worst = {}
+    for dtype in ("bfloat16", "float32"):
+        x = [t.to(getattr(torch, dtype)) for t in (q, k, v, kg, vg)]
+        out = fa.flash_attention(*x[:3])
+        out_g = fa.flash_attention(x[0], x[3], x[4])
+        worst[dtype] = max(
+            _check_close(out, fa.flash_attention_ref(*x[:3]),
+                         ATTN_TOL[dtype],
+                         f"flash_attention at full width, {dtype}"),
+            _check_close(out_g, fa.flash_attention_ref(x[0], x[3], x[4]),
+                         ATTN_TOL[dtype],
+                         f"flash_attention at full width, grouped, {dtype}"))
+        if not torch.equal(out_g, out):
+            raise AssertionError(f"flash_attention: grouped != repeat_kv in "
+                                 f"{dtype}")
+        errs["flash_attention"] = max(errs["flash_attention"], worst[dtype])
+        del x, out, out_g
+    log(f"[serve] flash_attention on layer 0's inputs: kernel == plain to "
+        f"one bf16 ulp in bf16 and within 2e-6 cast to float32, with "
+        f"repeat_kv (g = 1) and grouped (g = {g}), and the two kernel "
+        f"outputs ==; largest differences {worst}")
+    fa.flash_attention.launches = launches      # checks do not count
+    return {"launches": launches, "timing": _time_flash(q, k, v)}
+
+
+def phase_serving_f32(errs: dict) -> None:
+    """The main path at full width in float32, where rounding leaves room
+    for a limit that separates a faulty kernel: the checked generate
+    (decode kernel within 2e-6 of plain at the first and last step) with
+    the ref route teacher-forced over its tokens, and forward_train through
+    the flash kernel, both within LOGIT_RTOL["float32"] of the ref route's
+    largest logit."""
+    import torch
+    cfg, params, batch, engine = _serving_setup("float32")
+    res, step_logits, held = _generate_checked(cfg, engine, batch, errs)
+    if not (bool(torch.isfinite(res.logprobs).all())
+            and float(res.logprobs.max()) <= 0.0):
+        raise AssertionError("float32 generate: logprobs out of range")
+    del held
+    _teacher_forced(cfg, params, batch, res.tokens, step_logits)
+    del step_logits
+    _forward_vs_ref(cfg, params, batch)
+    del engine, params, batch, res
+    _free_cuda()
+
+
+def phase_serving_cuda_cpu() -> None:
+    """Reduced llama3.2-1b, float32, served on CUDA (the decode kernel) and
+    on the CPU (its plain version) from one set of weights."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models.model import init_params
+    from repro_torch.serve import ServingEngine
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(get("llama3.2-1b").reduced(), dtype="float32",
+                              attn_impl="pallas")
+    params = init_params(cfg, seed=0)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (3, 24)).astype(np.int32))
+    out = {}
+    for device, p in (("cuda", params),
+                      ("cpu", tree_map(lambda t: t.cpu(), params))):
+        launches = da.decode_attention.launches
+        out[device] = ServingEngine(cfg, p, cache_len=48).generate(
+            {"tokens": toks.to(device)}, 8)
+        out[device + "_launches"] = da.decode_attention.launches - launches
+    gpu, cpu = out["cuda"], out["cpu"]
+    same = torch.equal(gpu.tokens.cpu(), cpu.tokens)
+    lp = float((gpu.logprobs.cpu() - cpu.logprobs).abs().max())
+    log(f"[serve-cuda-cpu] {cfg.name} float32, batch 3, prompt 24, 8 new: "
+        f"greedy tokens CUDA == CPU {same}, logprobs differ by {lp:.3e}; "
+        f"decode_attention launches cuda {out['cuda_launches']}, cpu "
+        f"{out['cpu_launches']}")
+    if not same or lp > 1e-4:
+        raise AssertionError("reduced serving: CUDA and CPU disagree")
+    if out["cuda_launches"] != cfg.n_layers * 8 or out["cpu_launches"]:
+        raise AssertionError("reduced serving: the CUDA run did not go "
+                             "through the decode kernel")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     device = phase_device()
@@ -925,6 +1492,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as root:
         trainer = phase_trainer(root, errs)
         phase_trainer_cuda_cpu(root)
+    log(f"[done] trainer phases {time.perf_counter() - t_start:.1f} s")
+    _free_cuda()        # the trainers' hook cycles still hold device state
+    errs.update(flash_attention=0.0, decode_attention=0.0)
+    phase_attention_kernels(errs)
+    serving = phase_serving(errs)
+    phase_serving_f32(errs)
+    phase_serving_cuda_cpu()
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     kernels = [{
         "name": "event_step", "route": "cuda",
@@ -944,6 +1518,15 @@ def main() -> int:
             "replaces": replaces, "launches": trainer["launches"][name],
             "max_abs_err": errs[name], **trainer["timing"][name],
             "library_ms": None})
+    for name, replaces in (("flash_attention",
+                            "src/repro/kernels/flash_attention.py:81"),
+                           ("decode_attention",
+                            "src/repro/kernels/decode_attention.py:72")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces, "launches": serving["launches"][name],
+            "max_abs_err": errs[name], **serving["timing"][name]})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": device}))
     return 0

@@ -10,7 +10,7 @@ on first use into ``build/repro_torch/`` at the root of the checkout
 The library name carries a hash of the source and the flags, so an edited
 source is rebuilt and a stale library is never loaded.  Nothing here falls
 back: a missing nvcc or a failed compile raises.  The wrapper of each
-kernel declares its entry point's C signature.
+kernel declares its entry point's C signature (:func:`entry`).
 """
 
 from __future__ import annotations
@@ -23,8 +23,10 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build", "load", "nvcc_path",
-           "ptx"]
+import torch
+
+__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build", "device_of", "entry",
+           "load", "nvcc_path", "ptx"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -32,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_entries: dict[tuple[str, str], object] = {}
 
 
 def nvcc_path() -> str:
@@ -98,3 +101,27 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         lib = _loaded[name] = ctypes.CDLL(build(name)["path"])
     return lib
+
+
+def entry(name: str, fn: str, argtypes: list):
+    """The C entry point ``fn`` of source ``name``, built on first use,
+    with its argument types set and an ``int`` (CUDA error) result."""
+    f = _entries.get((name, fn))
+    if f is None:
+        f = getattr(load(name), fn)
+        f.argtypes, f.restype = argtypes, ctypes.c_int
+        _entries[name, fn] = f
+    return f
+
+
+def device_of(name: str, *tensors: torch.Tensor) -> str:
+    """"cpu" or "cuda": the one device the ``tensors`` of a call to kernel
+    ``name``'s wrapper lie on.  The wrapper takes its plain version for
+    "cpu" and launches the kernel for "cuda"."""
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"tensors on different devices: "
+                         f"{[str(t.device) for t in tensors]}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, not {dev}")
+    return dev.type

@@ -26,6 +26,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ._build import device_of, entry
+
 __all__ = ["BLOCK", "bytes_moved", "dequantize_delta", "dequantize_delta_ref",
            "quantize_delta", "quantize_delta_ref"]
 
@@ -94,25 +96,6 @@ _DEQUANT_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                      ctypes.c_void_p, ctypes.c_void_p]
 
 
-def _entry(name: str, argtypes: list):
-    """One C entry point of the kernel library, built on first use."""
-    from ._build import load
-
-    fn = getattr(load("ckpt_delta"), name)
-    fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    return fn
-
-
-def _check_device(*tensors: torch.Tensor) -> str:
-    dev = tensors[0].device
-    if any(t.device != dev for t in tensors):
-        raise ValueError(f"tensors on different devices: "
-                         f"{[str(t.device) for t in tensors]}")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"ckpt_delta runs on cpu or cuda, not {dev}")
-    return dev.type
-
-
 def _check_kernel(dtype: torch.dtype, block: int) -> None:
     if dtype not in _DTYPES:
         raise TypeError(f"the ckpt_delta kernels take float32 or bfloat16, "
@@ -130,7 +113,7 @@ def quantize_delta(cur: torch.Tensor, base: torch.Tensor, *,
     base of one shape and one float dtype), which raises if it cannot be
     built or launched.
     """
-    if _check_device(cur, base) == "cpu":
+    if device_of("ckpt_delta", cur, base) == "cpu":
         return quantize_delta_ref(cur, base, block=block)
     if cur.shape != base.shape or cur.dtype != base.dtype:
         raise ValueError(f"cur {tuple(cur.shape)} {cur.dtype} and base "
@@ -143,7 +126,7 @@ def quantize_delta(cur: torch.Tensor, base: torch.Tensor, *,
     scales = torch.empty((n_blocks,), dtype=torch.float32, device=cur.device)
     if n == 0:
         return q, scales
-    launch = _entry("ckpt_quantize_delta", _QUANT_ARGTYPES)
+    launch = entry("ckpt_delta", "ckpt_quantize_delta", _QUANT_ARGTYPES)
     with torch.cuda.device(cur.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(cur.data_ptr(), base.data_ptr(), _DTYPES[cur.dtype], n,
@@ -167,7 +150,7 @@ def dequantize_delta(q: torch.Tensor, scales: torch.Tensor,
     CPU tensors take the plain version; CUDA tensors the kernel, which
     raises if it cannot be built or launched.
     """
-    if _check_device(q, scales, base) == "cpu":
+    if device_of("ckpt_delta", q, scales, base) == "cpu":
         return dequantize_delta_ref(q, scales, base, block=block)
     _check_kernel(base.dtype, block)
     n = base.numel()
@@ -184,7 +167,8 @@ def dequantize_delta(q: torch.Tensor, scales: torch.Tensor,
     out = torch.empty_like(base)
     if n == 0:
         return out
-    launch = _entry("ckpt_dequantize_delta", _DEQUANT_ARGTYPES)
+    launch = entry("ckpt_delta", "ckpt_dequantize_delta",
+                   _DEQUANT_ARGTYPES)
     with torch.cuda.device(base.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(q.data_ptr(), scales.data_ptr(), base.data_ptr(),

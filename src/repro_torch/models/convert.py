@@ -1,9 +1,13 @@
-"""Carry weights and train states between the JAX package and the port.
+"""Carry weights, train states and decode caches between the JAX package
+and the port.
 
 Both packages keep one parameter layout: nested dicts, the ``layers``
-tuple of stacked tensors, and ``x @ W`` weights of shape ``(in, out)``.
-So a tree read as numpy (``jax.tree.map(np.asarray, params)``) becomes
-the port's parameters leaf for leaf, and back.
+tuple of stacked tensors, and ``x @ W`` weights of shape ``(in, out)``;
+and one decode-cache layout: ``layers`` (a tuple of stacked ``{"k", "v"}``
+dicts), ``tail`` and an int32 ``length``.  So a tree read as numpy
+(``jax.tree.map(np.asarray, tree)``) becomes the port's tree leaf for
+leaf with :func:`params_from_numpy`, and :func:`state_to_numpy` gives it
+back, for parameters, train states and caches alike.
 
 numpy has no bfloat16 of its own.  :func:`params_from_numpy` takes a
 bfloat16 leaf either as the ``ml_dtypes`` array that ``np.asarray`` of a

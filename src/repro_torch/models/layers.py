@@ -10,8 +10,10 @@ Pallas kernel sits in this module, so plain torch is the port:
   (flash-style) attention, written out with the same chunking, masks and
   accumulator updates.  It is deliberately not
   ``F.scaled_dot_product_attention``: the reference computes this function
-  itself, and the port's flash-attention kernel (ROADMAP Queue B4) is to
-  be held against this copy.
+  itself.  The model's ``attn_impl != "ref"`` route goes to the
+  hand-written kernels of :mod:`repro_torch.kernels` instead;
+* :func:`decode_attention` is the reference's plain one-token attention
+  against a KV cache (the ``attn_impl="ref"`` decode path).
 
 There are no logical-axis trees: the port has no sharding layer yet.
 """
@@ -23,8 +25,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-__all__ = ["NEG_INF", "apply_rope", "chunked_attention", "dense_init",
-           "norm_init", "rms_norm", "rope_angles", "swiglu", "swiglu_init"]
+__all__ = ["NEG_INF", "apply_rope", "chunked_attention", "decode_attention",
+           "dense_init", "norm_init", "rms_norm", "rope_angles", "swiglu",
+           "swiglu_init"]
 
 NEG_INF = -1e30
 
@@ -81,11 +84,14 @@ def rope_angles(positions: torch.Tensor, head_dim: int,
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor,
                sin: torch.Tensor) -> torch.Tensor:
-    """x (B, S, H, hd); cos/sin (S, hd//2)."""
+    """x (B, S, H, hd); cos/sin (S, hd//2) or, for per-row positions as
+    in decode, (B, S, hd//2)."""
     half = x.shape[-1] // 2
     x1, x2 = x[..., :half], x[..., half:]
-    cos_b = cos[None, :, None, :]
-    sin_b = sin[None, :, None, :]
+    if cos.dim() == 2:
+        cos_b, sin_b = cos[None, :, None, :], sin[None, :, None, :]
+    else:
+        cos_b, sin_b = cos[:, :, None, :], sin[:, :, None, :]
     xf = x.dtype
     x1, x2 = x1.float(), x2.float()
     out = torch.cat([x1 * cos_b - x2 * sin_b,
@@ -161,6 +167,32 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         outs.append(out.permute(0, 3, 1, 2, 4))           # (b,qc,kv,g,hd)
     out = torch.stack(outs, dim=1)                        # (b,nq,qc,kv,g,hd)
     return out.reshape(b, sq, kv * g, hd).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, length: torch.Tensor, *,
+                     window: int = 0) -> torch.Tensor:
+    """Single-token attention against a KV cache (the reference's
+    ``layers.decode_attention``; its unused ``ring_pos`` is not carried).
+
+    q (B, 1, H, hd); caches (B, S, KV, hd); ``length`` (B,) = number of
+    valid entries.  With ``window`` > 0 the cache is a ring buffer of size
+    S == window holding min(length, window) valid entries.
+    """
+    b, _, h, hd = q.shape
+    s, kv = k_cache.shape[1], k_cache.shape[2]
+    g = h // kv
+    scale = 1.0 / math.sqrt(hd)
+    qr = q.reshape(b, kv, g, hd).float() * scale
+    scores = torch.einsum("bkgd,bskd->bkgs", qr, k_cache.float())
+    idx = torch.arange(s, device=q.device)[None, :]
+    lim = torch.clamp(length, max=window) if window else length
+    valid = idx < lim[:, None]
+    neg = torch.tensor(NEG_INF, dtype=torch.float32, device=q.device)
+    scores = torch.where(valid[:, None, None, :], scores, neg)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
+    return out.reshape(b, 1, h, hd).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

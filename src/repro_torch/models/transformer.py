@@ -1,9 +1,13 @@
-"""Dense decoder blocks: parameter init and the teacher-forced forward pass.
+"""Dense decoder blocks: parameter init and the three execution modes.
 
-The port of the dense part of ``repro/models/transformer.py`` (``:50-237``,
-``:408-499``): global ("attn") and sliding-window ("local") attention
+The port of the dense part of ``repro/models/transformer.py`` (``:50-371``,
+``:408-650``): global ("attn") and sliding-window ("local") attention
 blocks with a SwiGLU FFN, RMSNorm, RoPE, token embedding and an LM head
-(untied or tied).
+(untied or tied), run as
+
+* :func:`forward_train`: the teacher-forced pass -> logits;
+* :func:`prefill`: the full-sequence pass that also fills the decode cache;
+* :func:`decode_step`: one token against the cache.
 
 The parameter tree keeps the reference's layout, so that the train state
 flattens to the same leaves (:mod:`repro_torch.tree`): the repeats of the
@@ -11,13 +15,30 @@ block unit are stacked along a leading layer axis in the ``layers`` tuple
 (one dict per kind in the unit), a remainder runs as the ``tail`` tuple,
 and weights are ``x @ W`` matrices of shape ``(in, out)``.  The stacked
 layers run as a Python loop over :func:`torch.unbind` views (one stacked
-gradient per weight, no per-layer zero-fill).
+gradient per weight, no per-layer zero-fill).  The decode cache keeps the
+reference's tree too: ``layers`` is a tuple of ``{"k", "v"}`` dicts stacked
+along the layer axis, ``tail`` a tuple, ``length`` ``(B,)`` int32; an
+"attn" entry is a ``(B, cache_len, KV, hd)`` append buffer (valid prefix =
+length), a "local" entry a ``(B, window, KV, hd)`` ring buffer (slot of
+position t = t mod window).
+
+Attention follows ``cfg.attn_impl`` as in the reference, dispatched by
+:mod:`repro_torch.kernels.ops`: ``"ref"`` runs the plain
+``chunked_attention`` / ``decode_attention`` of :mod:`.layers`; any other
+value the hand-written flash kernel in :func:`forward_train` and the
+decode kernel in :func:`decode_step`.  :func:`prefill` runs
+``chunked_attention`` whatever ``attn_impl`` is, as the reference's does.
+
+Unlike the reference, :func:`prefill` writes into a fresh cache and
+:func:`decode_step` writes the new token's k and v into the cache it is
+given, in place, and returns that cache: the reference's one-hot blend
+(``_scatter_time``) reads and writes every layer's whole cache three times
+a token.  A caller that reuses a cache clones it first.
 
 Not ported yet, and raising ``NotImplementedError``: MoE FFNs (ROADMAP
-Queue A item 10.2), RG-LRU (10.3), xLSTM (10.4), M-RoPE (10.5),
-encoder-only inputs (10.6), and ``attn_impl != "ref"`` (the attention
-kernels, Queue B4/B5).  ``cfg.remat`` is ignored: the port keeps every
-activation, which does not change the numbers.
+Queue A item 10.2), RG-LRU (10.3), xLSTM (10.4), M-RoPE (10.5) and
+encoder-only inputs (10.6).  ``cfg.remat`` is ignored: the port keeps
+every activation, which does not change the numbers.
 """
 
 from __future__ import annotations
@@ -28,10 +49,12 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from ..kernels import ops
 from .layers import (apply_rope, chunked_attention, dense_init, norm_init,
                      rms_norm, rope_angles, swiglu, swiglu_init)
 
-__all__ = ["forward_train", "init_params", "param_dtype"]
+__all__ = ["decode_step", "forward_train", "init_cache", "init_params",
+           "param_dtype", "prefill"]
 
 _DENSE = ("attn", "local")
 
@@ -60,11 +83,7 @@ def check_supported(cfg: ModelConfig) -> None:
     if not cfg.embed_inputs:
         raise NotImplementedError(f"{cfg.name}: encoder-only inputs are "
                                   f"ROADMAP Queue A item 10.6")
-    if cfg.attn_impl != "ref":
-        raise NotImplementedError(
-            f"{cfg.name}: attn_impl={cfg.attn_impl!r} needs the attention "
-            f"kernels (ROADMAP Queue B4/B5); the port trains through "
-            f"attn_impl='ref'")
+    ops.check_impl(cfg.attn_impl)
 
 
 # ---------------------------------------------------------------------------
@@ -128,32 +147,114 @@ def init_params(cfg: ModelConfig, seed: int = 0,
 def _attn_apply(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
                 cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     b, s, _ = x.shape
-    hd = cfg.head_dim
-    q = (x @ p["w_q"]).reshape(b, s, cfg.n_heads, hd)
-    k = (x @ p["w_k"]).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (x @ p["w_v"]).reshape(b, s, cfg.n_kv_heads, hd)
-    k = apply_rope(k, cos, sin)
-    q = apply_rope(q, cos, sin)
-    if cfg.attn_layout == "repeat_kv":
-        g = cfg.n_heads // cfg.n_kv_heads
-        k = torch.repeat_interleave(k, g, dim=2)
-        v = torch.repeat_interleave(v, g, dim=2)
+    q, k, v = _qkv(cfg, p, x, cos, sin)
+    kx, vx = _layout_kv(cfg, k, v)
     window = cfg.attn_window if kind == "local" else 0
-    out = chunked_attention(q, k, v, causal=cfg.causal, window=window,
-                            q_chunk=cfg.attn_q_chunk,
-                            kv_chunk=cfg.attn_kv_chunk)
-    return out.reshape(b, s, cfg.n_heads * hd) @ p["w_o"]
+    out = ops.flash_attention(q, kx, vx, causal=cfg.causal, window=window,
+                              impl=cfg.attn_impl, q_chunk=cfg.attn_q_chunk,
+                              kv_chunk=cfg.attn_kv_chunk)
+    return out.reshape(b, s, -1) @ p["w_o"]
+
+
+def _layout_kv(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """k, v as attention takes them: expanded to H heads under
+    ``attn_layout="repeat_kv"``, else (``"grouped"``) as they are."""
+    if cfg.attn_layout != "repeat_kv":
+        return k, v
+    g = cfg.n_heads // cfg.n_kv_heads
+    return (torch.repeat_interleave(k, g, dim=2),
+            torch.repeat_interleave(v, g, dim=2))
+
+
+def _qkv(cfg: ModelConfig, a: dict, h: torch.Tensor, cos: torch.Tensor,
+         sin: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The projections of ``h`` (B, S, d), with RoPE on q and k."""
+    b, s, _ = h.shape
+    hd = cfg.head_dim
+    q = (h @ a["w_q"]).reshape(b, s, cfg.n_heads, hd)
+    k = (h @ a["w_k"]).reshape(b, s, cfg.n_kv_heads, hd)
+    v = (h @ a["w_v"]).reshape(b, s, cfg.n_kv_heads, hd)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def _ffn(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    if "ffn" in p:
+        x = x + swiglu(p["ffn"], rms_norm(x, p["norm_f"], cfg.norm_eps))
+    return x
 
 
 def _block_apply_full(cfg: ModelConfig, kind: str, p: dict,
                       x: torch.Tensor, cos: torch.Tensor,
                       sin: torch.Tensor) -> torch.Tensor:
     h = rms_norm(x, p["norm_t"], cfg.norm_eps)
-    x = x + _attn_apply(cfg, kind, p["attn"], h, cos, sin)
-    if "ffn" in p:
-        h = rms_norm(x, p["norm_f"], cfg.norm_eps)
-        x = x + swiglu(p["ffn"], h)
-    return x
+    return _ffn(cfg, p, x + _attn_apply(cfg, kind, p["attn"], h, cos, sin))
+
+
+def _block_prefill(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
+                   cos: torch.Tensor, sin: torch.Tensor,
+                   entry: dict) -> torch.Tensor:
+    """Prefill-mode apply: attention through ``chunked_attention`` (the
+    reference's prefill takes no kernel), and the layer's k, v written
+    into its cache ``entry``."""
+    b, s, _ = x.shape
+    h = rms_norm(x, p["norm_t"], cfg.norm_eps)
+    q, k, v = _qkv(cfg, p["attn"], h, cos, sin)
+    kx, vx = _layout_kv(cfg, k, v)
+    window = cfg.attn_window if kind == "local" else 0
+    out = chunked_attention(q, kx, vx, causal=cfg.causal, window=window,
+                            q_chunk=cfg.attn_q_chunk,
+                            kv_chunk=cfg.attn_kv_chunk)
+    x = x + out.reshape(b, s, -1) @ p["attn"]["w_o"]
+    for name, t in (("k", k), ("v", v)):
+        buf = entry[name]
+        if kind == "local" and s >= buf.shape[1]:
+            # Ring buffer of the last w keys, rolled so that slot t mod w
+            # holds the key at absolute position t.
+            w = buf.shape[1]
+            buf.copy_(torch.roll(t[:, -w:], s % w, dims=1))
+        else:
+            buf[:, :s] = t
+    return _ffn(cfg, p, x)
+
+
+def _block_decode(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
+                  entry: dict, new_length: torch.Tensor, slot: tuple,
+                  cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Decode-mode apply: x (B,1,d); the token's k, v go into ``entry``
+    at ``slot`` (in place), then attention over ``new_length`` entries."""
+    b = x.shape[0]
+    h = rms_norm(x, p["norm_t"], cfg.norm_eps)
+    q, k, v = _qkv(cfg, p["attn"], h, cos, sin)
+    kc, vc = entry["k"], entry["v"]
+    _scatter_time(kc, k, slot)
+    _scatter_time(vc, v, slot)
+    win = cfg.attn_window if kind == "local" else 0
+    out = ops.decode_attention(q, kc, vc, new_length, window=win,
+                               impl=cfg.attn_impl)
+    x = x + out.reshape(b, 1, -1) @ p["attn"]["w_o"]
+    return _ffn(cfg, p, x)
+
+
+def _slot(pos: torch.Tensor, size: int) -> tuple:
+    """Where each batch row's new entry goes in a cache axis of ``size``:
+    (rows, index, keep).  The reference's one-hot blend writes nothing for
+    a position >= size (``one_hot(size, size)`` is all zeros); ``keep``
+    marks the rows that are written."""
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    return rows, torch.clamp(pos, max=size - 1).long(), pos < size
+
+
+def _scatter_time(cache: torch.Tensor, new: torch.Tensor,
+                  slot: tuple) -> None:
+    """Write new (B,1,KV,hd) into cache (B,S,KV,hd) at each row's slot, in
+    place.  For finite values this gives the bits of the reference's
+    ``cache * (1 - onehot) + onehot * new`` (``transformer.py:366-371``),
+    which reads and writes the whole cache; a dropped row rewrites its
+    own value."""
+    rows, idx, keep = slot
+    cache[rows, idx] = torch.where(keep[:, None, None], new[:, 0],
+                                   cache[rows, idx])
 
 
 def _unbind_tree(tree: dict, n: int) -> list[dict]:
@@ -180,22 +281,102 @@ def _head(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     return x @ params["head"]
 
 
+def _layers(cfg: ModelConfig, params: dict, cache: dict | None = None):
+    """(kind, layer params, layer cache entry) in execution order: the
+    stacked repeats of the unit, then the tail.  Params and cache entries
+    are views into the stacked trees; the entry is None without a cache."""
+    unit = cfg.block_unit
+    n_rep = cfg.n_layers // len(unit)
+    per_kind = [_unbind_tree(stack, n_rep) for stack in params["layers"]]
+    entries = [_unbind_tree(stack, n_rep) for stack in cache["layers"]] \
+        if cache is not None else [[None] * n_rep for _ in unit]
+    for i in range(n_rep):
+        for u, kind in enumerate(unit):
+            yield kind, per_kind[u][i], entries[u][i]
+    tail = params.get("tail", ())
+    tail_entries = cache["tail"] if cache is not None else (None,) * len(tail)
+    yield from zip(cfg.blocks[len(cfg.blocks) - len(tail):], tail,
+                   tail_entries)
+
+
 def forward_train(cfg: ModelConfig, params: dict, batch: dict
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forced pass. Returns (logits (B,S,V), moe_aux_loss scalar)."""
     check_supported(cfg)
     x = _embed(cfg, params, batch)
-    s = x.shape[1]
-    positions = torch.arange(s, device=x.device)
+    positions = torch.arange(x.shape[1], device=x.device)
     cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
-    unit = cfg.block_unit
-    n_rep = cfg.n_layers // len(unit)
-    per_kind = [_unbind_tree(stack, n_rep) for stack in params["layers"]]
-    for i in range(n_rep):
-        for kind, layers in zip(unit, per_kind):
-            x = _block_apply_full(cfg, kind, layers[i], x, cos, sin)
-    tail = params.get("tail", ())
-    for kind, p in zip(cfg.blocks[len(cfg.blocks) - len(tail):], tail):
+    for kind, p, _ in _layers(cfg, params):
         x = _block_apply_full(cfg, kind, p, x, cos, sin)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _head(cfg, params, x), aux
+
+
+def init_cache(cfg: ModelConfig, batch_size: int, cache_len: int,
+               device: str | torch.device | None = None) -> dict:
+    """Zero decode cache (``device=None`` means CUDA): "attn" entries
+    (B, cache_len, KV, hd), "local" ring buffers (B, window, KV, hd), in
+    the parameters' dtype; ``length`` zeros."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    dt = param_dtype(cfg)
+    unit = cfg.block_unit
+    n_rep = cfg.n_layers // len(unit)
+
+    def entry(kind: str, lead: tuple[int, ...]) -> dict:
+        size = cfg.attn_window if kind == "local" else cache_len
+        shape = lead + (batch_size, size, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dt, device=dev),
+                "v": torch.zeros(shape, dtype=dt, device=dev)}
+
+    n_tail = cfg.n_layers - n_rep * len(unit)
+    return {"layers": tuple(entry(k, (max(n_rep, 1),)) for k in unit),
+            "tail": tuple(entry(k, ())
+                          for k in cfg.blocks[cfg.n_layers - n_tail:]),
+            "length": torch.zeros((batch_size,), dtype=torch.int32,
+                                  device=dev)}
+
+
+def prefill(cfg: ModelConfig, params: dict, batch: dict, *,
+            cache_len: int) -> tuple[torch.Tensor, dict]:
+    """Full-sequence pass filling a fresh decode cache on the parameters'
+    device.  Returns (logits for the last position (B,V), cache)."""
+    check_supported(cfg)
+    x = _embed(cfg, params, batch)
+    b, s = x.shape[:2]
+    if "attn" in cfg.blocks and s > cache_len:
+        raise ValueError(f"a {s}-token prompt does not fit a cache of "
+                         f"{cache_len}")
+    cos, sin = rope_angles(torch.arange(s, device=x.device), cfg.head_dim,
+                           cfg.rope_theta)
+    cache = init_cache(cfg, b, cache_len, device=x.device)
+    for kind, p, entry in _layers(cfg, params, cache):
+        x = _block_prefill(cfg, kind, p, x, cos, sin, entry)
+    cache["length"].fill_(s)
+    return _head(cfg, params, x[:, -1:])[:, 0], cache
+
+
+def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
+                cache: dict) -> tuple[torch.Tensor, dict]:
+    """One decode step. token (B,) -> (logits (B,V), cache).
+
+    Writes the token's k and v into ``cache`` in place and returns it with
+    ``length`` + 1 (a new tensor).
+    """
+    check_supported(cfg)
+    x = _embed(cfg, params, {"tokens": token[:, None]})
+    length = cache["length"]
+    new_length = length + 1
+    # Per-row positions: cos/sin (B, 1, hd/2).
+    cos, sin = rope_angles(length[:, None], cfg.head_dim, cfg.rope_theta)
+    slots: dict = {}
+    for kind, p, entry in _layers(cfg, params, cache):
+        if kind not in slots:
+            size = entry["k"].shape[1]
+            slots[kind] = _slot(length % size if kind == "local" else length,
+                                size)
+        x = _block_decode(cfg, kind, p, x, entry, new_length, slots[kind],
+                          cos, sin)
+    logits = _head(cfg, params, x)[:, 0]
+    return logits, {"layers": cache["layers"], "tail": cache["tail"],
+                    "length": new_length}

@@ -4,8 +4,9 @@
   ``chip_smoke.py`` finds no import of ``jax`` and none of ``repro`` /
   ``repro.*``.
 * A subprocess in which ``jax`` and ``repro`` cannot be imported at all
-  imports ``repro_torch``, runs a tiny CPU grid, and builds a tiny CPU
-  trainer that takes a step, a full and a proactive save and a restore;
+  imports ``repro_torch``, runs a tiny CPU grid, builds a tiny CPU
+  trainer that takes a step, a full and a proactive save and a restore,
+  and serves a tiny CPU ``generate`` through both attention routes;
   afterwards ``sys.modules`` holds neither.
 * Without CUDA, an entry point called without ``device=`` raises instead
   of running on the CPU.
@@ -50,7 +51,8 @@ def test_port_files_found():
     assert {"batch_torch.py", "event_step.py", "chip_smoke.py",
             "ckpt_delta.py", "manager.py", "loop.py", "transformer.py",
             "adamw.py", "pipeline.py", "scheduler.py", "runtime.py",
-            "convert.py", "train.py"} <= names
+            "convert.py", "train.py", "engine.py", "serve.py",
+            "flash_attention.py", "decode_attention.py", "ops.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -107,6 +109,18 @@ with tempfile.TemporaryDirectory() as d:
     tr.manager.save_proactive(2, tr.state)
     step, _ = tr.manager.restore(like=tr.state)
     assert step == 2
+
+import torch
+
+from repro_torch.models.model import init_params
+from repro_torch.serve import ServingEngine
+
+for impl in ("ref", "pallas"):
+    scfg = dataclasses.replace(cfg, attn_impl=impl)
+    eng = ServingEngine(scfg, init_params(scfg, seed=0, device="cpu"),
+                        cache_len=12)
+    out = eng.generate({"tokens": torch.zeros((2, 8), dtype=torch.int32)}, 4)
+    assert out.tokens.shape == (2, 4) and bool((out.logprobs <= 0).all())
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not leaked, leaked
@@ -135,7 +149,8 @@ def _entry_points():
     from repro_torch.configs.base import InputShape, PlatformConfig
     from repro_torch.experiments import evaluate_strategies
     from repro_torch.models.convert import params_from_numpy
-    from repro_torch.models.model import init_params
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.models.model import init_cache, init_params
     from repro_torch.train import FaultTolerantTrainer
 
     plat = Platform(mu=2500.0, c=60.0, d=10.0, r=30.0)
@@ -160,13 +175,17 @@ def _entry_points():
         "init_params": lambda: init_params(get("tinyllama-1.1b").reduced()),
         "params_from_numpy": lambda: params_from_numpy(
             {"w": np.zeros((2, 2), np.float32)}),
+        "init_cache": lambda: init_cache(get("tinyllama-1.1b").reduced(),
+                                         1, 8),
+        "serve_cli": lambda: serve_main(["--new-tokens", "1"]),
     }
 
 
 @pytest.mark.parametrize("entry", ["simulate_batch", "simulate_lanes",
                                    "evaluate_strategies", "run_lanes_torch",
                                    "FaultTolerantTrainer", "init_params",
-                                   "params_from_numpy"])
+                                   "params_from_numpy", "init_cache",
+                                   "serve_cli"])
 def test_no_silent_cpu_fallback(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

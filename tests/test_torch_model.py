@@ -11,7 +11,9 @@ float32 on reduced tinyllama-1.1b (untied head) and llama3.2-1b (tied):
 
 also with ``attn_layout="grouped"`` and with a sliding-window ("local")
 block.  One bfloat16 case per config is held at 2e-2 of the largest
-logit: bf16 rounds at other places in the two frameworks.
+logit: bf16 rounds at other places in the two frameworks.  The kernel
+route (``attn_impl="pallas"``) of ``forward_train`` matches the "ref"
+path on the CPU, where it takes the flash kernel's plain version.
 """
 
 import dataclasses
@@ -147,7 +149,20 @@ def test_unported_blocks_raise(arch, message):
         port_tf.init_params(REGISTRY[arch].reduced(), device="cpu")
 
 
-def test_kernel_attention_impl_raises():
-    cfg = config("tinyllama-1.1b", attn_impl="pallas")
-    with pytest.raises(NotImplementedError, match="B4"):
-        port_tf.forward_train(cfg, {}, {"tokens": torch.zeros((1, 4))})
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_kernel_attention_impl_matches_ref_path(variant):
+    """attn_impl="pallas" takes the flash kernel's wrapper, which on the
+    CPU is its plain version (dense softmax, ``flash_attention_ref``); the
+    "ref" path is ``chunked_attention``.  Both are float32 softmax
+    attention, so the logits agree at the forward test's 1e-5."""
+    cfg = config("tinyllama-1.1b", **VARIANTS[variant])
+    _, port_params = carried(cfg)
+    batch = {"tokens": torch.from_numpy(tokens(cfg))}
+    logits_ref, _ = port_tf.forward_train(cfg, port_params, batch)
+    logits_k, _ = port_tf.forward_train(
+        dataclasses.replace(cfg, attn_impl="pallas"), port_params, batch)
+    np.testing.assert_allclose(f32(logits_k), f32(logits_ref), atol=1e-5,
+                               rtol=1e-5)
+    with pytest.raises(ValueError, match="attn_impl"):
+        port_tf.forward_train(dataclasses.replace(cfg, attn_impl="triton"),
+                              port_params, batch)
