@@ -11,7 +11,9 @@ result):
                with nvcc, one process each, started together; the
                event_step PTX has no fma, the ckpt_delta PTX divides with
                div.rn.f32, rounds with cvt.rni and has no fma; the attention
-               PTX divides with div.rn.f32 (no fast-math division).
+               PTX divides with div.rn.f32 (no fast-math division), and
+               flash_attention's multiplies on the tensor cores
+               (wgmma.mma_async, its bf16 route).
 3. kernel    - event_step against its plain torch version on the same
                CUDA tensors, ``==`` on the bits, at 300, 4,800, the main
                path's 5,200 and 65,536 lanes with 1 and 4 passes.
@@ -60,14 +62,19 @@ result):
                (``tests/test_kernels.py``: FLASH_CASES and seq 96,
                DECODE_CASES and per-batch lengths 1/64/128) and one case
                each at the main path's heads (g = 8) and lengths (flash at
-               seq 2,048; decode over a cache of 2,176, 34 splits, ragged
-               lengths), float32 at 2e-6 and bfloat16 to one bf16 ulp.
+               seq 2,048; decode over a cache of 2,176 with ragged
+               lengths), and cases that cut the bf16 flash kernel's
+               64-row and 64-key tiles unevenly and decode prefixes that
+               end inside a cluster's last block, float32 at 2e-6 and
+               bfloat16 to one bf16 ulp.
 11. serving   - the slice's main path: ServingEngine on tinyllama-1.1b at
                full width (bf16, attn_impl="pallas", cache_len 2176),
                batch 8, prompt 2,048, 128 new tokens, greedy; prefill s,
                decode ms per step, tokens/s, peak memory and a profiled
-               window of decode steps; decode_attention launches set to 0
-               before the generate and read after (22 x 128).  A second,
+               window of decode steps, which must hold one decode kernel
+               per layer per step (one launch a call, no merge pass);
+               decode_attention launches set to 0 before the generate and
+               read after (22 x 128).  A second,
                checked generate: hooks hold the kernel to its plain version
                on every layer's inputs at the first and last step (one
                bf16 ulp; the last step's inputs also cast to float32, at
@@ -184,7 +191,8 @@ PTX_RULES = {
     "event_step": ((), ("fma.rn.f64",)),
     "ckpt_delta": (("div.rn.f32", "cvt.rni.f32.f32"),
                    ("fma.rn.f32", "div.approx", "div.full")),
-    "flash_attention": (("div.rn.f32",), ("div.approx", "div.full")),
+    "flash_attention": (("div.rn.f32", "wgmma.mma_async"),
+                        ("div.approx", "div.full")),
     "decode_attention": (("div.rn.f32",), ("div.approx", "div.full")),
 }
 
@@ -955,21 +963,24 @@ def _record_restores(mgr) -> list:
 
 # -- the serving path (flash_attention and decode_attention kernels) ----------
 
-# The reference's kernel cases (tests/test_kernels.py:17-115), and one case
-# of each kernel at the main path's heads (g = 8) and lengths.
+# The reference's kernel cases (tests/test_kernels.py:17-115), one case of
+# each kernel at the main path's heads (g = 8) and lengths, and uneven tiles
+# (flash) and cluster ranges (decode).
 FLASH_CASES = (
     # (b, sq, skv, h, kv, hd, causal, window, q_offset)
     (2, 128, 128, 4, 4, 64, True, 0, 0), (2, 128, 128, 4, 2, 64, True, 0, 0),
     (1, 256, 256, 8, 1, 64, True, 0, 0), (1, 128, 128, 4, 2, 64, True, 64, 0),
     (2, 128, 256, 4, 2, 32, True, 0, 128),
     (2, 128, 128, 4, 4, 64, False, 0, 0), (1, 64, 64, 2, 2, 128, True, 0, 0),
-    (1, 96, 96, 2, 2, 32, True, 0, 0), (1, 2048, 2048, 32, 4, 64, True, 0, 0))
+    (1, 96, 96, 2, 2, 32, True, 0, 0), (1, 2048, 2048, 32, 4, 64, True, 0, 0),
+    (1, 130, 130, 4, 2, 64, True, 0, 0), (1, 64, 200, 4, 2, 64, True, 0, 136))
 DECODE_CASES = (
     # (b, s, h, kv, hd, window, lengths)
     (2, 256, 8, 2, 64, 0, (200, 200)), (2, 256, 8, 8, 64, 0, (17, 17)),
     (3, 128, 10, 1, 32, 64, (100, 100, 100)), (1, 512, 4, 4, 128, 0, (512,)),
     (2, 128, 4, 2, 64, 128, (40, 40)), (3, 128, 4, 2, 32, 0, (1, 64, 128)),
-    (8, 2176, 32, 4, 64, 0, (2176, 2175, 2113, 2049, 2048, 1000, 64, 1)))
+    (8, 2176, 32, 4, 64, 0, (2176, 2175, 2113, 2049, 2048, 1000, 64, 1)),
+    (2, 2176, 32, 4, 64, 0, (2175, 273)))
 # Kernel against plain, as (atol, rtol): float32 at the reference's 2e-6;
 # bfloat16 to one bf16 ulp, since kernel and plain each round one float32
 # result to bf16 once (atol for values near 0).
@@ -1074,7 +1085,8 @@ def _serving_setup(dtype: str):
 
 
 def _profile_decode(engine, batch, n_steps: int = 8) -> None:
-    """Device busy share over a window of decode steps (profiler)."""
+    """Device busy share over a window of decode steps (profiler), and one
+    decode-attention kernel per layer per step in it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     logits, cache = engine.prefill(batch)
@@ -1097,6 +1109,14 @@ def _profile_decode(engine, batch, n_steps: int = 8) -> None:
         f"events ({events / n_steps:.1f} a step)")
     for dev_us, key, count in sorted(rows, reverse=True)[:8]:
         log(f"[serve]   {dev_us / 1e3:10.3f} ms  {count:6d}x  {key[:70]}")
+    decode = [(key, count) for _, key, count in rows if "decode_kernel" in key]
+    want = engine.cfg.n_layers * n_steps
+    log(f"[serve] decode-attention kernels in the window: "
+        f"{sum(c for _, c in decode)} ({want} wanted: one per layer per "
+        f"step); {[k[:60] for k, _ in decode]}")
+    if len(decode) != 1 or decode[0][1] != want:
+        raise AssertionError(f"the profiled decode window holds "
+                             f"{decode}, not one decode kernel {want} times")
 
 
 def _time_attention(name: str, kernel, plain, library, bound: dict,
@@ -1115,10 +1135,35 @@ def _time_attention(name: str, kernel, plain, library, bound: dict,
             "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
 
 
+def _device_ms(fn, calls: int, runs: int = 3) -> float:
+    """Device time per call (profiler): the device time of everything
+    ``runs`` runs of ``fn`` launch, over their ``runs * calls`` calls.  A
+    profile that recorded no device event (the tracer lost the window) is
+    taken again, up to three times, then raises."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        busy_us = sum(r[0] for r in _device_rows(prof))
+        if busy_us > 0:
+            return busy_us / 1e3 / (runs * calls)
+    raise RuntimeError("the profiler recorded no device time in three "
+                       "tries")
+
+
 def _time_decode(layers: list) -> dict:
     """decode_attention over the last decode step's inputs of every layer
     in turn (22 x 17.9 MB of caches, so L2 is cold as in a decode step),
-    per call, beside its plain version, SDPA and the bytes bound."""
+    per call, beside its plain version, SDPA and the bytes bound: by CUDA
+    events around back-to-back calls, and as device time (profiler), which
+    the result carries.  The kernel takes less device time than its
+    wrapper takes on the host, so back-to-back calls time the host."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as da
@@ -1136,19 +1181,33 @@ def _time_decode(layers: list) -> dict:
                for q, kc, vc, _ in layers]
     per = len(layers)
     launches = da.decode_attention.launches
+
+    def kernel():
+        return [da.decode_attention(*x) for x in layers]
+
+    def plain():
+        return [da.decode_attention_ref(*x) for x in layers]
+
+    def library():
+        return [F.scaled_dot_product_attention(*x, attn_mask=mask)
+                for x in sdpa_in]
+
     out = _time_attention(
         f"decode_attention at the last decode step, over the {per} layers' "
         f"inputs in turn (each: q {tuple(q.shape)}, caches "
-        f"{tuple(kc.shape)}, length {int(n[0])}), per call",
-        lambda: [da.decode_attention(*x) for x in layers],
-        lambda: [da.decode_attention_ref(*x) for x in layers],
-        lambda: [F.scaled_dot_product_attention(*x, attn_mask=mask)
-                 for x in sdpa_in],
+        f"{tuple(kc.shape)}, length {int(n[0])}), per call, CUDA events",
+        kernel, plain, library,
         {"bound_ms": bound_ms, "bound_by": "bytes",
          "note": f"{nbytes} bytes at {HBM_BYTES_PER_S:.3g} B/s"}, 20, 3,
         per_call=per)
+    dev = {key: _device_ms(fn, per) for key, fn in
+           (("ms", kernel), ("plain_ms", plain), ("library_ms", library))}
+    log(f"[timing] decode_attention, device time per call (profiler): "
+        f"kernel {dev['ms']:.5f} ms, plain {dev['plain_ms']:.5f} ms, "
+        f"scaled_dot_product_attention {dev['library_ms']:.5f} ms; kernel at "
+        f"{bound_ms / dev['ms']:.4f} of the bound")
     da.decode_attention.launches = launches       # timing does not count
-    return out
+    return {**out, **dev}
 
 
 def _time_flash(q, k, v) -> dict:
@@ -1156,6 +1215,9 @@ def _time_flash(q, k, v) -> dict:
     from repro_torch.kernels import flash_attention as fa
     ops = fa.flops(tuple(q.shape), k.shape[1], causal=True)
     ops_ms = ops / BF16_FLOP_PER_S * 1e3
+    # The bf16 kernel's own tensor work: p @ v three times (p in three bf16
+    # parts), so 8 * hd flops per valid pair instead of 4 * hd.
+    split_ms = 2 * ops_ms
     nbytes = fa.bytes_moved(q, k, v)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound = {"bound_ms": max(ops_ms, bytes_ms),
@@ -1163,8 +1225,9 @@ def _time_flash(q, k, v) -> dict:
              "note": f"{ops} flops at the bf16 tensor-core peak "
                      f"{BF16_FLOP_PER_S:.3g}/s = {ops_ms:.6f} ms (at the fp32 "
                      f"CUDA-core peak {FP32_FLOP_PER_S:.3g}/s: "
-                     f"{ops / FP32_FLOP_PER_S * 1e3:.6f} ms); {nbytes} bytes "
-                     f"= {bytes_ms:.6f} ms"}
+                     f"{ops / FP32_FLOP_PER_S * 1e3:.6f} ms; with p in three "
+                     f"bf16 parts, the kernel's tensor work: {split_ms:.6f} "
+                     f"ms); {nbytes} bytes = {bytes_ms:.6f} ms"}
     qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
     launches = fa.flash_attention.launches
     out = _time_attention(

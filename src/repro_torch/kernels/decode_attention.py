@@ -11,11 +11,12 @@ The serving engine's decode step runs attention through this module when
   computes (q is scaled by ``* (1 / sqrt(hd))`` where ``ref.py`` divides by
   ``sqrt(hd)``: the same bits at head dim 64, within an fp32 ulp else).
 * :func:`decode_attention` is the wrapper: a CPU tensor goes to the plain
-  version, a CUDA tensor to the hand-written split-KV kernel in
-  ``csrc/decode_attention.cu`` (built on first use by :mod:`._build`).  A
-  CUDA call launches the kernel (its two passes) or raises; it never falls
-  back.  Each call that launches adds one to
-  ``decode_attention.launches``.
+  version, a CUDA tensor to the hand-written kernel in
+  ``csrc/decode_attention.cu`` (built on first use by :mod:`._build`): one
+  launch of clusters of 8 blocks per (batch, kv head), merged in shared
+  memory, with no scratch in device memory.  A CUDA call launches the
+  kernel or raises; it never falls back.  Each call that launches adds one
+  to ``decode_attention.launches``.
 """
 
 from __future__ import annotations
@@ -27,12 +28,11 @@ import torch
 
 from ..models.layers import decode_attention as decode_attention_ref
 from ._build import device_of, entry
-from .flash_attention import _DTYPES, check_kernel_inputs
+from .flash_attention import _DTYPES, check_aligned, check_kernel_inputs
 
-__all__ = ["MAX_GROUP", "SPLIT", "bytes_moved", "decode_attention",
+__all__ = ["MAX_GROUP", "bytes_moved", "decode_attention",
            "decode_attention_ref"]
 
-SPLIT = 64          # cache entries per split (kSplit in the source)
 MAX_GROUP = 16      # query heads per kv head the kernel takes
 
 
@@ -50,9 +50,8 @@ def bytes_moved(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 # C signature of csrc/decode_attention.cu's entry point.
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
-    + [ctypes.c_float] + [ctypes.c_void_p] * 3 + [ctypes.c_int] \
-    + [ctypes.c_void_p] * 2
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 \
+    + [ctypes.c_float, ctypes.c_void_p]
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -85,24 +84,19 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError("decode_attention over an empty cache")
     q, k_cache, v_cache, length = (t.contiguous() for t in
                                    (q, k_cache, v_cache, length))
-    if k_cache.data_ptr() % 16:          # k rows are read 16 bytes at once
-        k_cache = k_cache.clone()
+    # k and v rows are copied 16 bytes at once.  The cache tree's per-layer
+    # views start on such a boundary; a cache that does not is refused, not
+    # copied (a copy of both caches per call would cost more than the call).
+    check_aligned("decode_attention", k_cache, v_cache)
     out = torch.empty_like(q)
     if b == 0:
         return out
-    n_splits = -(-s // SPLIT)
-    rows = b * kv * n_splits * (h // kv)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    part_m, part_l = torch.empty(rows, **f32), torch.empty(rows, **f32)
-    part_acc = torch.empty((rows, hd), **f32)
     launch = entry("decode_attention", "decode_attention_fwd", _ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                     length.data_ptr(), _DTYPES[q.dtype], b, s, h, kv, hd,
-                     window, 1.0 / math.sqrt(hd), part_m.data_ptr(),
-                     part_l.data_ptr(), part_acc.data_ptr(), n_splits,
-                     out.data_ptr(), stream)
+                     length.data_ptr(), out.data_ptr(), _DTYPES[q.dtype], b,
+                     s, h, kv, hd, window, 1.0 / math.sqrt(hd), stream)
     decode_attention.launches += 1
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "

@@ -10,7 +10,9 @@ pass runs attention through this module, as the JAX package's
   ``q_offset`` masks at ``NEG_INF = -1e30``.
 * :func:`flash_attention` is the wrapper: a CPU tensor goes to the plain
   version, a CUDA tensor to the hand-written kernel in
-  ``csrc/flash_attention.cu`` (built on first use by :mod:`._build`).  A
+  ``csrc/flash_attention.cu`` (built on first use by :mod:`._build`):
+  bfloat16 inputs on the tensor cores (wgmma, P in three bf16 parts),
+  float32 inputs on the CUDA cores.  A
   CUDA call launches the kernel or raises; it never falls back.  Each
   launch adds one to ``flash_attention.launches``.  The kernel is forward
   only, like the Pallas kernel: a CUDA call on inputs that need a gradient
@@ -108,6 +110,17 @@ def check_kernel_inputs(name: str, *tensors: torch.Tensor) -> None:
                            f"attn_impl='ref' to differentiate")
 
 
+def check_aligned(name: str, *tensors: torch.Tensor) -> None:
+    """Raise for a tensor that does not start on a 16-byte boundary: the
+    kernels copy rows into shared memory 16 bytes at once (cp.async)."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"the {name} kernel copies rows 16 bytes at "
+                             f"once; a {tuple(t.shape)} input starts at "
+                             f"address {t.data_ptr():#x}, not on a 16-byte "
+                             f"boundary")
+
+
 # C signature of csrc/flash_attention.cu's entry point.
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 \
     + [ctypes.c_float, ctypes.c_void_p]
@@ -132,6 +145,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{tuple(v.shape)} are not (B,Sq,H,hd) and "
                          f"(B,Skv,KV,hd) with KV dividing H")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if q.dtype == torch.bfloat16:
+        check_aligned("flash_attention", q, k, v)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

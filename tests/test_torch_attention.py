@@ -256,7 +256,14 @@ CARD_TOL = {"float32": dict(atol=2e-6, rtol=2e-6),
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", FLASH_CASES + [
-    (1, 2048, 2048, 32, 4, 64, True, 0, 0)])    # tinyllama heads, seq 2048
+    (1, 2048, 2048, 32, 4, 64, True, 0, 0),     # tinyllama heads, seq 2048
+    # Cases that cut the bf16 kernel's 64-row and 64-key tiles unevenly.
+    (1, 130, 130, 4, 2, 64, True, 0, 0),
+    (1, 64, 200, 4, 2, 64, True, 0, 136),
+    (2, 130, 130, 4, 2, 32, True, 0, 0),
+    (1, 200, 200, 2, 1, 128, True, 0, 0),
+    (1, 130, 130, 4, 2, 128, True, 48, 0),
+    (1, 70, 130, 2, 2, 64, False, 0, 0)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_kernel_matches_plain_on_card(case, dtype):
     _card()
@@ -275,13 +282,17 @@ def test_flash_kernel_matches_plain_on_card(case, dtype):
 @pytest.mark.parametrize("case", DECODE_CASES + [
     (3, 128, 4, 2, 32, 0, (1, 64, 128)), (2, 130, 16, 1, 64, 0, 0),
     (2, 64, 8, 2, 128, 0, 65),
-    (8, 2176, 32, 4, 64, 0, (2176, 2175, 2113, 2049, 2048, 1000, 64, 1))])
+    (8, 2176, 32, 4, 64, 0, (2176, 2175, 2113, 2049, 2048, 1000, 64, 1)),
+    # Valid prefixes that end inside the last block of a cluster.
+    (2, 2176, 32, 4, 64, 0, (2175, 273)), (2, 300, 32, 2, 128, 0, (299, 5))])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_decode_kernel_matches_plain_on_card(case, dtype):
     """The reference's cases, per-batch lengths 1/64/128, an empty cache
     (length 0: the uniform average), a full one (length S + 1, the
-    reference's dropped write) and tinyllama's heads (g = 8) over a cache
-    of 2,176 (34 splits) with ragged lengths."""
+    reference's dropped write), tinyllama's heads (g = 8) over a cache of
+    2,176 with ragged lengths, and prefixes that end inside the last block
+    of a cluster of 8 (2,175 and 273 of 2,176; 299 and 5 of 300, where
+    three blocks have no key)."""
     _card()
     b, s, h, kv, hd, window, length = case
     t = [as_torch(a, dtype, "cuda") for a in decode_inputs(b, s, h, kv, hd)]
@@ -314,3 +325,41 @@ def test_kernels_refuse_what_they_do_not_take_on_card():
     n = torch.ones(1, dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError, match="at most 16"):
         da.decode_attention(q, kc, kc, n)
+
+
+@pytest.mark.gpu
+def test_decode_is_one_kernel_launch_on_card():
+    """One CUDA call is one device kernel (no combine pass, no scratch
+    allocation's memset) and adds one to the launch count."""
+    _card()
+    from torch.profiler import ProfilerActivity, profile
+    t = [as_torch(a, "bfloat16", "cuda")
+         for a in decode_inputs(8, 2176, 32, 4, 64)]
+    n = torch.full((8,), 2000, dtype=torch.int32, device="cuda")
+    da.decode_attention(*t, n)                  # built and warm
+    torch.cuda.synchronize()
+    launches = da.decode_attention.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        da.decode_attention(*t, n)
+        torch.cuda.synchronize()
+    assert da.decode_attention.launches == launches + 1
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert [e.name for e in kernels if "decode" in e.name] \
+        and len(kernels) == 1, [e.name for e in kernels]
+
+
+@pytest.mark.gpu
+def test_kernels_refuse_misaligned_inputs_on_card():
+    """The kernels copy rows 16 bytes at once: an input that does not
+    start on a 16-byte boundary is refused, not copied."""
+    _card()
+    buf = torch.zeros(64 * 2 * 64 + 4, device="cuda", dtype=torch.bfloat16)
+    odd = buf[4:].view(1, 64, 2, 64)            # 8 bytes off
+    q = torch.zeros((1, 1, 4, 64), device="cuda", dtype=torch.bfloat16)
+    kc = torch.zeros((1, 64, 2, 64), device="cuda", dtype=torch.bfloat16)
+    n = torch.ones(1, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="16-byte"):
+        da.decode_attention(q, kc, odd, n)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention(odd, kc, kc)
