@@ -9,29 +9,47 @@ result):
 2. build     - build every CUDA source (event_step.cu, ckpt_delta.cu,
                flash_attention.cu, decode_attention.cu) from the checkout
                with nvcc, one process each, started together; the
-               event_step PTX has no fma, the ckpt_delta PTX divides with
-               div.rn.f32, rounds with cvt.rni and has no fma; the attention
+               event_step PTX (event_step_kernel and lane_loop_kernel) has
+               no fma and multiplies with mul.rn.f64, the ckpt_delta PTX
+               divides with div.rn.f32, rounds with cvt.rni and has no fma;
+               the attention
                PTX divides with div.rn.f32 (no fast-math division), and
                flash_attention's multiplies on the tensor cores
                (wgmma.mma_async, its bf16 route).
 3. kernel    - event_step against its plain torch version on the same
                CUDA tensors, ``==`` on the bits, at 300, 4,800, the main
-               path's 5,200 and 65,536 lanes with 1 and 4 passes.
+               path's 5,200 and 65,536 lanes with 1 and 4 passes.  Then
+               lane_loop_kernel against the plain eager loop on the same
+               CUDA chunk, ``==`` on every row of every state matrix and
+               every count: the study's 5,200-lane chunk as the main path
+               hands it over, and a 384-lane grid the study does not reach
+               (verification 0-3 with keep_ckpts 1-3 and silent errors,
+               "within" windows, per-event windows, all four trust
+               policies, FixedProbability's draws), each at the engine's
+               per-launch cap and at a cap of 1; the grid also CUDA ==
+               CPU on every makespan.
 4. main path - the paper's study at the scale ``BENCH_simulator.json``
                records (n = 65,536 processors, 200 traces): rfo,
                optimal_prediction and BestPeriod(rfo) through the three
                steps of ``evaluate_strategies`` on CUDA, with the kernel
-               launch counts set to 0 just before and read just after;
-               the timed pass's first 8 traces of every candidate rerun on
+               launch counts set to 0 just before and read just after:
+               lane_loop launches > 0, event_step launches 0; launches per
+               chunk, the largest per-lane iteration count, lanes/s and
+               how the host splits the pass's wall time.  The timed
+               pass's first 8 traces of every candidate rerun on
                the CPU over the same bank, ``==``; then a 24-period x
                8-trace sub-grid on CUDA and on the CPU, ``==`` on every
                BatchResult field.
 5. scale     - 65,536 lanes as one chunk (the ``engine_perf.py`` big-lane
                setup), lanes/s, 64 lanes checked against the CPU, and a
-               profiler window for the device's busy share.
+               profiler window for the device's busy share and device
+               events per iteration.
 6. timing    - event_step at the main path's shape against its plain
                version, by CUDA events, beside its bytes bound; the timed
-               state is checked ``==`` too.
+               state is checked ``==`` too.  lane_loop_kernel on the
+               study's chunk by CUDA events and profiler device time,
+               beside its bound, the plain loop's time on the same chunk
+               (phase 3's run) and the longest lane's ns per iteration.
 7. ckpt kernels - quantize_delta / dequantize_delta kernels ``==`` their
                plain versions (q, scales, restored bits) at 123, 256,
                1000 x 37 and 4096 x 16 elements in fp32 and bf16, with a
@@ -102,7 +120,9 @@ result):
                (its plain version): greedy tokens ``==``, logprobs within
                1e-4.
 
-The last two lines are the ``kernels`` JSON line (all five kernels) and
+The last two lines are the ``kernels`` JSON line (all five TPU kernels;
+the event_step entry reports lane_loop_kernel, which carries the advance
+on the main path) and
 ``{"ok": true, "device": {...}}``.  Run from a checkout: it imports the
 port from ``src/`` beside it and builds into ``build/repro_torch/``.  The
 checkpoint phases write about 27 GB into a temporary directory (under
@@ -188,7 +208,7 @@ def phase_device() -> dict:
 
 # PTX each source must (and must not) contain: the bitwise contracts.
 PTX_RULES = {
-    "event_step": ((), ("fma.rn.f64",)),
+    "event_step": (("mul.rn.f64",), ("fma.rn.f64",)),
     "ckpt_delta": (("div.rn.f32", "cvt.rni.f32.f32"),
                    ("fma.rn.f32", "div.approx", "div.full")),
     "flash_attention": (("div.rn.f32", "wgmma.mma_async"),
@@ -271,6 +291,150 @@ def phase_kernel(sizes: tuple[int, ...]) -> float:
     return max_err
 
 
+def _record_chunks() -> tuple[list, object]:
+    """Wrap the lane engine's ``lane_loop`` so that each chunk's state is
+    cloned at its first call, as the engine hands it over.  Returns the
+    records and a function that removes the wrapper."""
+    import repro_torch.core.batch_torch as bt
+    from repro_torch.kernels.lane_loop import LQ_ITERS
+    real = bt.lane_loop
+    seen = []
+
+    def recording(lanes, g, *, cap):
+        if int(lanes.q[LQ_ITERS].max()) == 0:
+            seen.append((lanes.clone(), g))
+        return real(lanes, g, cap=cap)
+
+    recording.launches = 0
+    bt.lane_loop = recording
+
+    def restore() -> None:
+        bt.lane_loop = real
+    return seen, restore
+
+
+def _check_lane_loop(lanes, g, what: str) -> dict:
+    """lane_loop_kernel == the plain loop on one CUDA chunk, at the
+    engine's cap and at a cap of 1: every row of F, I and Q on the bits.
+    Returns the plain run's milliseconds (CUDA events), the largest
+    per-lane iteration count and the largest difference seen."""
+    import math
+
+    import torch
+    from repro_torch.core.batch_torch import _LAUNCH_CAP, _run_chunk
+    from repro_torch.kernels import event_step as es
+    from repro_torch.kernels.lane_loop import LQ_ITERS, lane_loop, lane_loop_ref
+    counts = lane_loop.launches, es.event_step.launches
+    plain = lanes.clone()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    _run_chunk(lane_loop_ref, plain, g, _LAUNCH_CAP)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    iters = int(plain.q[LQ_ITERS].max())
+    max_err = 0.0
+    for cap in (_LAUNCH_CAP, 1):
+        kern = lanes.clone()
+        before = lane_loop.launches
+        calls = _run_chunk(lane_loop, kern, g, cap)
+        torch.cuda.synchronize()
+        if lane_loop.launches - before != calls or \
+                calls > math.ceil(iters / cap):
+            raise AssertionError(f"lane_loop {what}, cap {cap}: {calls} "
+                                 f"calls, {lane_loop.launches - before} "
+                                 f"launches for {iters} iterations")
+        for name in ("f", "i", "q"):
+            a, b = getattr(kern, name), getattr(plain, name)
+            max_err = max(max_err, _max_abs_err(a.double(), b.double()))
+            if not _bits_equal(a, b):
+                rows = (a != b).any(1).nonzero().flatten().tolist()
+                bad = int((a != b).any(0).sum())
+                raise AssertionError(f"lane_loop kernel != plain on {what}, "
+                                     f"cap {cap}: matrix {name} rows {rows}, "
+                                     f"{bad} lanes")
+        log(f"[kernel] lane_loop {what}, {lanes.f.shape[1]} lanes, cap "
+            f"{cap}: kernel == plain on every row ({calls} launches, "
+            f"longest lane {iters} iterations)")
+    lane_loop.launches, es.event_step.launches = counts
+    return {"plain_ms": plain_ms, "iterations": iters, "max_abs_err": max_err}
+
+
+def _check_grid() -> dict:
+    """384 lanes the study does not reach, run by the engine on CUDA (the
+    chunk recorded) and on the CPU: verification 0-3 with keep_ckpts 1-3
+    on traces with silent errors, instant and "within" windows, per-event
+    windows and all four trust policies."""
+    import numpy as np
+    from repro_torch.core.batch import simulate_lanes
+    from repro_torch.core.simulator import (AlwaysTrust,
+                                            FixedProbabilityTrust,
+                                            NeverTrust, ThresholdTrust)
+    from repro_torch.core.traces import (FALSE_PRED, FAULT_PRED,
+                                         FAULT_UNPRED, EventTrace,
+                                         Exponential, make_event_trace)
+    from repro_torch.core.waste import Platform
+    plat = Platform(mu=2500.0, c=60.0, d=10.0, r=30.0)
+    traces = [make_event_trace(Exponential(2500.0), 2500.0, 0.7, 0.6,
+                               100000.0, np.random.default_rng(s),
+                               silent_mu=4000.0) for s in (20, 21, 22)]
+    g = np.random.default_rng(10)
+    times = np.sort(g.uniform(0, 75000.0, 80))
+    kinds = g.choice([FAULT_UNPRED, FAULT_PRED, FALSE_PRED], 80,
+                     p=[0.3, 0.4, 0.3]).astype(np.int8)
+    traces.append(EventTrace(times, kinds, 100000.0,
+                             g.choice([-1.0, 0.0, 250.0, 600.0], 80)))
+    trusts = [NeverTrust(), AlwaysTrust(), ThresholdTrust(100.0),
+              FixedProbabilityTrust(0.6)]
+    verify = [(0, 0.0, 1), (1, 40.0, 2), (2, 30.0, 1), (3, 20.0, 3)]
+    lanes = [(tr, t, wm, v, p) for tr in range(len(traces))
+             for t in trusts for wm in ("instant", "within")
+             for v in verify for p in (800.0, 1200.0, 2500.0)]
+    kw = dict(cp=30.0, trace_indices=[ln[0] for ln in lanes],
+              periods=[ln[4] for ln in lanes],
+              trusts=[ln[1] for ln in lanes],
+              windows=[300.0] * len(lanes),
+              window_modes=[ln[2] for ln in lanes],
+              window_periods=[100.0] * len(lanes),
+              n_verifies=[ln[3][0] for ln in lanes],
+              verify_costs=[ln[3][1] for ln in lanes],
+              keep_ckpts=[ln[3][2] for ln in lanes],
+              seeds=list(range(5, 5 + len(lanes))))
+    seen, restore = _record_chunks()
+    try:
+        on_gpu = simulate_lanes(traces, plat, 30000.0, **kw)
+    finally:
+        restore()
+    on_cpu = simulate_lanes(traces, plat, 30000.0, device="cpu", **kw)
+    if not (on_gpu.view(np.int64) == on_cpu.view(np.int64)).all():
+        raise AssertionError("lane_loop grid: CUDA != CPU")
+    log(f"[kernel] lane_loop grid, {len(lanes)} lanes: CUDA == CPU on every "
+        f"makespan")
+    (chunk, bank), = seen
+    return _check_lane_loop(chunk, bank, "grid")
+
+
+def phase_lane_loop(study: dict) -> dict:
+    """lane_loop_kernel == the plain loop on the study's chunk (recorded
+    from one pass of the study on CUDA) and on the grid; returns the study
+    chunk and the check's numbers for the timing phase."""
+    from repro_torch.experiments import candidate_makespans
+    sc = study["sc"]
+    seen, restore = _record_chunks()
+    try:
+        candidate_makespans(study["traces"], sc.platform, sc.time_base,
+                            sc.cp, study["unique"], seed=sc.seed)
+    finally:
+        restore()
+    (chunk, bank), = seen
+    out = _check_lane_loop(chunk, bank, "study chunk")
+    grid = _check_grid()
+    return dict(out, chunk=chunk, bank=bank,
+                max_abs_err=max(out["max_abs_err"], grid["max_abs_err"]))
+
+
 def _assert_same(a, b, tag: str) -> None:
     import numpy as np
     for f in dataclasses.fields(a):
@@ -292,17 +456,18 @@ def study_setup() -> dict:
     sc = ScenarioSpec(n_traces=N_TRACES)
     t0 = time.perf_counter()
     traces = sc.make_traces()
+    make_s = time.perf_counter() - t0
     events = np.mean([t.times.size for t in traces])
     log(f"[main] scenario n={sc.n} mu={sc.mu:.1f} s C={sc.c} R={sc.r} "
         f"D={sc.d} r={sc.recall} p={sc.precision}: {len(traces)} traces, "
-        f"{events:.1f} events/trace, made in "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"{events:.1f} events/trace, made in {make_s:.4f} s")
     base = rfo(sc.platform)
     opt = optimal_prediction(sc.pp)
     unique, rows = expand_candidates([base, opt, BestPeriodSearch(base)],
                                      sc.platform)
     return {"sc": sc, "traces": traces, "opt": opt, "unique": unique,
-            "rows": rows, "n_lanes": len(unique) * len(traces)}
+            "rows": rows, "n_lanes": len(unique) * len(traces),
+            "make_s": make_s}
 
 
 def phase_main(study: dict) -> dict:
@@ -312,12 +477,14 @@ def phase_main(study: dict) -> dict:
     from repro_torch.core.batch import simulate_batch
     from repro_torch.experiments import best_means, candidate_makespans
     from repro_torch.kernels.event_step import event_step
+    from repro_torch.kernels.lane_loop import lane_loop
     from repro_torch.obs.metrics import MetricsRegistry, set_registry
 
     sc, traces, unique = study["sc"], study["traces"], study["unique"]
     plat, n_lanes = sc.platform, study["n_lanes"]
     reg = MetricsRegistry()
     prev = set_registry(reg)
+    lane_loop.launches = 0
     event_step.launches = 0
     t0 = time.perf_counter()
     ms = candidate_makespans(traces, plat, sc.time_base, sc.cp, unique,
@@ -325,11 +492,15 @@ def phase_main(study: dict) -> dict:
     means = best_means(ms, study["rows"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = event_step.launches
+    launches, step_launches = lane_loop.launches, event_step.launches
     set_registry(prev)
     if launches <= 0:
-        raise AssertionError("the main path launched no event_step kernel")
+        raise AssertionError("the main path launched no lane_loop kernel")
+    if step_launches != 0:
+        raise AssertionError(f"the main path launched event_step_kernel "
+                             f"{step_launches} times")
     iters = reg.counters["torch.iterations"]
+    chunks = reg.counters["torch.chunks"]
     for name, m in zip(("RFO", "OptimalPrediction", "BestPeriod(RFO)"),
                        means):
         if not (np.isfinite(m) and m > sc.time_base):
@@ -339,10 +510,20 @@ def phase_main(study: dict) -> dict:
             f"{1.0 - sc.time_base / m!r}")
     if not means[2] <= means[0]:
         raise AssertionError("BestPeriod lost to its base period")
+    split = {key: reg.timers.get(f"torch.{key}_s", 0.0)
+             for key in ("tables", "upload", "run", "readback")}
+    rest = wall - sum(split.values())
     log(f"[main] {n_lanes} lanes ({len(unique)} candidates x {len(traces)} "
-        f"traces) in {wall:.3f} s: {n_lanes / wall:.1f} lanes/s, {iters} "
-        f"loop iterations ({wall / iters * 1e3:.4f} ms each), event_step "
-        f"launches {launches}")
+        f"traces) in {wall:.4f} s: {n_lanes / wall:.1f} lanes/s; {chunks} "
+        f"chunk(s), {launches} lane_loop launches ({launches / chunks:.1f} "
+        f"per chunk), event_step launches {step_launches}, longest lane "
+        f"{iters} iterations")
+    log(f"[main] the pass's wall time on the host: draw tables "
+        f"{split['tables']:.4f} s, uploads {split['upload']:.4f} s, host "
+        f"loop (kernel + flag read-backs) {split['run']:.4f} s, read-backs "
+        f"{split['readback']:.4f} s, the rest (candidates, bank packing, "
+        f"means) {rest:.4f} s; the traces were made in "
+        f"{study['make_s']:.4f} s before it")
 
     # The timed pass itself against the CPU: its first SUB_TRACES traces
     # of every candidate, rerun over the same 200-trace bank.
@@ -400,25 +581,31 @@ def phase_scale() -> None:
             windows=np.full(lanes.size, 300.0), seeds=lanes + 7,
             device=device)
 
+    from repro_torch.obs.metrics import MetricsRegistry, set_registry
     everything = np.arange(BIG_LANES)
     run(everything[:256])                      # warm up allocator, kernel
     torch.cuda.synchronize()
+    reg = MetricsRegistry()
+    prev = set_registry(reg)
     t0 = time.perf_counter()
     ms = run(everything)
     wall = time.perf_counter() - t0
+    set_registry(prev)
     if not (np.isfinite(ms).all() and (ms > 50000.0).all()):
         raise AssertionError("scale run: makespans not finite above "
                              "time_base")
     cpu = run(everything[:64], device="cpu")
     if not (cpu == ms[:64]).all():
         raise AssertionError("scale run: CUDA != CPU on the first 64 lanes")
-    log(f"[scale] {BIG_LANES} lanes in one chunk: {wall:.3f} s, "
-        f"{BIG_LANES / wall:.1f} lanes/s; first 64 lanes == CPU")
+    log(f"[scale] {BIG_LANES} lanes in one chunk: {wall:.4f} s, "
+        f"{BIG_LANES / wall:.1f} lanes/s, "
+        f"{reg.counters['kernels.lane_loop.launches']} lane_loop launches, "
+        f"longest lane {reg.counters['torch.iterations']} iterations, host "
+        f"loop {reg.timers['torch.run_s']:.4f} s, draw tables "
+        f"{reg.timers['torch.tables_s']:.4f} s; first 64 lanes == CPU")
 
     # Device busy share and kernels per iteration over a profiled run.
     from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.obs.metrics import MetricsRegistry, set_registry
     lanes = everything[:8192]
     reg = MetricsRegistry()
     prev = set_registry(reg)
@@ -497,6 +684,73 @@ def phase_timing(n_lanes: int) -> dict:
         f"ms, operations {ops_ms:.6f} ms)")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "max_abs_err": max_err}
+
+
+def phase_loop_timing(check: dict) -> dict:
+    """lane_loop_kernel on the study's chunk (as phase 3 recorded it) by
+    CUDA events and profiler device time, beside its bound, the plain
+    loop's time on the same chunk (phase 3's run) and the longest lane's
+    ns per iteration."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.batch_torch import _LAUNCH_CAP
+    from repro_torch.kernels.lane_loop import (CONST_BYTES_PER_LANE,
+                                               FLOPS_PER_LANE_ITER, LQ_ITERS,
+                                               STATE_BYTES_PER_LANE,
+                                               lane_loop)
+    chunk, g = check["chunk"], check["bank"]
+    n = chunk.f.shape[1]
+    launches = lane_loop.launches
+    reps = 10
+    fresh = [chunk.clone() for _ in range(reps + 1)]
+    lane_loop(fresh[-1], g, cap=_LAUNCH_CAP)        # warm up
+    iters = fresh[-1].q[LQ_ITERS]
+    if int(iters.max()) != check["iterations"]:
+        raise AssertionError("the timed launch ran another iteration count")
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for lanes in fresh[:reps]:
+        lane_loop(lanes, g, cap=_LAUNCH_CAP)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    fresh = [chunk.clone() for _ in range(reps)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for lanes in fresh:
+            lane_loop(lanes, g, cap=_LAUNCH_CAP)
+        torch.cuda.synchronize()
+    kern = [(us, c) for us, key, c in _device_rows(prof)
+            if "lane_loop_kernel" in key]
+    device_ms = (sum(us for us, _ in kern) / sum(c for _, c in kern) / 1e3
+                 if kern else None)
+    lane_loop.launches = launches           # timing launches do not count
+    bank_bytes = g.times.numel() * (8 + 4 + 8)
+    nbytes = (n * (2 * STATE_BYTES_PER_LANE + CONST_BYTES_PER_LANE)
+              + chunk.tab.numel() * 8 + bank_bytes)
+    total_iters = int(iters.sum())
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = FLOPS_PER_LANE_ITER * total_iters / FP64_FLOP_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    longest = check["iterations"]
+    dev = "not measured" if device_ms is None else f"{device_ms:.5f} ms"
+    ns_iter = (device_ms if device_ms is not None else ms) / longest * 1e6
+    log(f"[timing] lane_loop {n} lanes (the study's chunk), one launch: "
+        f"kernel {ms:.5f} ms by CUDA events, device time {dev} "
+        f"(profiler); plain loop {check['plain_ms']:.3f} ms; bound "
+        f"{bound_ms:.6f} ms by {bound_by} (bytes {nbytes}: {bytes_ms:.6f} "
+        f"ms; operations {FLOPS_PER_LANE_ITER} x {total_iters} lane "
+        f"iterations: {ops_ms:.6f} ms); longest lane {longest} iterations, "
+        f"{ns_iter:.2f} ns per iteration; mean lane "
+        f"{total_iters / n:.1f} iterations")
+    return {"ms": ms, "device_ms": device_ms, "plain_ms": check["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "ns_per_iteration": ns_iter}
 
 
 # -- the fault-tolerant trainer's path (ckpt_delta kernels) -------------------
@@ -1544,11 +1798,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
     study = study_setup()
-    max_err = phase_kernel((300, 4800, study["n_lanes"], BIG_LANES))
+    phase_kernel((300, 4800, study["n_lanes"], BIG_LANES))
+    loop_check = phase_lane_loop(study)
     main_run = phase_main(study)
     phase_scale()
-    timing = phase_timing(study["n_lanes"])
-    max_err = max(max_err, timing["max_abs_err"])
+    phase_timing(study["n_lanes"])
+    loop_timing = phase_loop_timing(loop_check)
     log(f"[done] simulation phases {time.perf_counter() - t_start:.1f} s")
     errs = {"quantize_delta": 0.0, "dequantize_delta": 0.0}
     phase_ckpt_kernels(errs)
@@ -1564,13 +1819,14 @@ def main() -> int:
     phase_serving_cuda_cpu()
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     kernels = [{
-        "name": "event_step", "route": "cuda",
+        "name": "event_step", "kernel": "lane_loop_kernel", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/event_step.cu",
         "replaces": "src/repro/kernels/event_step.py:275",
-        "launches": main_run["launches"], "max_abs_err": max_err,
-        "ms": timing["ms"], "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": None}]
+        "launches": main_run["launches"],
+        "max_abs_err": loop_check["max_abs_err"],
+        "ms": loop_timing["ms"], "plain_ms": loop_timing["plain_ms"],
+        "bound_ms": loop_timing["bound_ms"],
+        "bound_by": loop_timing["bound_by"], "library_ms": None}]
     for name, replaces in (("quantize_delta",
                             "src/repro/kernels/ckpt_delta.py:54"),
                            ("dequantize_delta",

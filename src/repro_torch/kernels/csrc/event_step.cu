@@ -1,30 +1,47 @@
-// Event-advance step of the lane engine, hand-written for Hopper (sm_90a).
+// The lane engine's kernels, hand-written for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel
-//   src/repro/kernels/event_step.py::event_step_pallas
-//   (body _event_kernel -> _advance_math, event_step.py:75-255).
-// The plain version is repro_torch/kernels/event_step.py::event_step_ref;
-// every expression below mirrors it statement for statement.
+// event_step_kernel: one event-advance step.  Replaces the Pallas TPU
+// kernel src/repro/kernels/event_step.py::event_step_pallas (body
+// _event_kernel -> _advance_math, event_step.py:75-255).  Its plain version
+// is repro_torch/kernels/event_step.py::event_step_ref.
+//
+// lane_loop_kernel: the whole loop of the lane engine.  Replaces the
+// reference's compiled loop, src/repro/core/batch_jax.py:584-605 (a
+// lax.while_loop over _pop_one, _push_all, _arrive_one and four calls of
+// event_step_pallas, event_step.py:275, which XLA fuses on the TPU).  Its
+// plain version is repro_torch/kernels/lane_loop.py::lane_loop_ref, the
+// eager lockstep loop; every expression below mirrors that module's _pop,
+// _push, _arrive and _body statement for statement, and both kernels call
+// the same advance() (event_step_ref's _advance_math).
 //
 // Layout: fs is (23, L) float64 and is_ is (12, L) int32, row-major, rows
-// in the F_* / I_* order.  One thread owns one lane (a column) and walks
-// the lanes with a grid-stride loop; neighbouring threads read
-// neighbouring addresses of each row, so every load and store coalesces.
-// The thread runs `passes` schedule steps in registers and writes back
-// once, which is bitwise the same as `passes` separate launches.
+// in the F_* / I_* order; the lane loop's F (36, L), I (33, L) and Q (5, L)
+// extend them (lane_loop.py), and tab is (L, width).  One thread owns one
+// lane (a column): neighbouring threads read neighbouring addresses of each
+// row, so every state load and store coalesces.
 //
-// Bound: 464 bytes per lane per launch (232 read, 232 written), whatever
-// `passes` is; per pass a lane does about 30 float64 adds and at most one
-// divide, the rest compares and selects.  So a launch is bound by memory
-// bytes and, at the engine's lane counts (a few thousand), by launch
-// latency.  There is no tensor-core work.
+// Bound.  event_step_kernel: 464 bytes per lane per launch (232 read, 232
+// written), whatever `passes` is; per pass about 30 float64 adds and at
+// most one divide, the rest compares and selects: bound by bytes and, at
+// a few thousand lanes, by launch latency.  lane_loop_kernel: the bytes are
+// the state in and out once a launch (under 1 KB a lane) plus the bank and
+// the draw table, microseconds at the study's 5,200 lanes; what bounds it
+// is each lane's serial chain, a few hundred dependent float64 selects,
+// compares and adds an iteration, over thousands of iterations.  So its
+// design keeps a lane's whole state in registers (the 8 deferred-fault slots
+// in fully unrolled loops, never an indexed local array), runs every
+// iteration of the lane in one launch (the host relaunches only past a
+// per-launch cap), and launches blocks of 32 threads so that a few thousand
+// lanes spread over all 132 SMs.  There is no tensor-core work.
 //
 // Bitwise contract with the numpy engine:
-//   * built with --fmad=false (no multiply-add contraction; the step has
-//     no products anyway, and the divide is IEEE div.rn.f64);
-//   * min/max propagate NaN like jnp.minimum / torch.minimum;
+//   * built with --fmad=false (no multiply-add contraction: the in-window
+//     fault date t + (w*u + 0) rounds the product first, as the plain
+//     version's separate kernels do; the divide is IEEE div.rn.f64);
+//   * min/max propagate NaN like jnp.minimum / torch.minimum / amin;
 //   * every `x + (cond ? c : 0.0)` is kept as written: x + 0.0 is not x
-//     when x is -0.0.
+//     when x is -0.0;
+//   * ties take the first index, as torch's argmin / argmax do.
 
 #include <cuda_runtime.h>
 
@@ -261,6 +278,344 @@ __global__ void event_step_kernel(const double* fs_in, const int* is_in,
   }
 }
 
+
+// ---- the lane loop ---------------------------------------------------------
+
+constexpr int DEF_SLOTS = 8;
+constexpr int BIG_SEQ = 2147483647;
+constexpr int ADV_PASSES = 4;
+constexpr int LOOP_THREADS = 32;
+
+// Rows of the lane loop's matrices after the F_* / I_* rows (lane_loop.py).
+enum LFRow { LF_PRED_T = 23, LF_PRED_FD = 24, LF_PRED_WIN = 25,
+             LF_TPARAM = 26, LF_WINDOW = 27, LF_DEF = 28, N_LF = 36 };
+enum LIRow { LI_PC = 12, LI_PRED_TRUE = 13, LI_NEXT_SEQ = 14,
+             LI_OVERFLOW = 15, LI_KIND = 16, LI_WITHIN = 17,
+             LI_COUNTS = 18, LI_DEFSEQ = 25, N_LI = 33 };
+enum LQRow { LQ_TR, LQ_NEV, LQ_CURSOR, LQ_CUR, LQ_ITERS, N_LQ };
+// The event counters, rows LI_COUNTS + c.
+enum Count { C_FAULTS, C_FAULTS_HIT, C_PREDICTIONS, C_TRUSTED,
+             C_TRUSTED_TRUE, C_IGNORED, C_SILENT, N_COUNTS };
+enum PC { PC_POP, PC_FAULT, PC_PRED, PC_FINAL, PC_SILENT };
+enum Trust { TRUST_NEVER, TRUST_ALWAYS, TRUST_THRESHOLD, TRUST_FIXED_Q };
+enum Kind { FAULT_UNPRED = 0, FAULT_PRED = 1, FALSE_PRED = 2, SILENT = 3 };
+
+// A lane's pop / arrival state (the plain version's dict `s`).
+struct Lane {
+  int pc;
+  bool pred_true;
+  int next_seq;
+  bool overflow;
+  long long cursor, cur;
+  double pred_t, pred_fd, pred_win;
+  double def_time[DEF_SLOTS];
+  int def_seq[DEF_SLOTS];
+  int count[N_COUNTS];
+};
+
+// A lane's constants (the plain version's dict `k`) and the bank.
+struct LaneConst {
+  long long tr, n_ev;
+  int kind;
+  bool within;
+  double tparam, window;
+  const double* tab;      // this lane's row of the draw table
+  long long tab_width;
+};
+
+struct Bank {
+  const double* times;
+  const int* kinds;
+  const double* wins;
+  long long width;
+};
+
+__device__ __forceinline__ bool is_inf(double x) {
+  return fabs(x) == __longlong_as_double(0x7ff0000000000000LL);
+}
+
+// _gather_row: tab[lane, min(col, width - 1)].
+__device__ __forceinline__ double draw_at(const LaneConst& k, long long col) {
+  return k.tab[col < k.tab_width - 1 ? col : k.tab_width - 1];
+}
+
+// _push: deferred-fault insert into the first empty slot.  With no empty
+// slot the lane overflows and slot 0 is written, as argmax of an all-zero
+// row picks 0.
+__device__ __forceinline__ void push_fault(Lane& s, bool push, double date) {
+  bool any_empty = false;
+  int slot = 0;
+#pragma unroll
+  for (int q = DEF_SLOTS - 1; q >= 0; --q) {
+    const bool empty = is_inf(s.def_time[q]);
+    slot = empty ? q : slot;
+    any_empty = any_empty || empty;
+  }
+  s.overflow = s.overflow || (push && !any_empty);
+#pragma unroll
+  for (int q = 0; q < DEF_SLOTS; ++q) {
+    const bool hot = (q == slot) && push;
+    s.def_time[q] = hot ? date : s.def_time[q];
+    s.def_seq[q] = hot ? s.next_seq : s.def_seq[q];
+  }
+  s.next_seq = push ? s.next_seq + 1 : s.next_seq;
+}
+
+// One iteration of one lane: lane_loop.py's _body (_pop, the fault date
+// and _push, _arrive, ADV_PASSES advances).
+__device__ __forceinline__ void lane_body(double* f, int* st, Lane& s,
+                                          const LaneConst& k, const Bank& b,
+                                          const Consts& kc) {
+  const double inf = __longlong_as_double(0x7ff0000000000000LL);
+
+  // ---- _pop
+  const double now = f[F_NOW];
+  double target = f[F_TARGET];
+  const bool pop = (st[I_FIN] == 0) && (s.pc == PC_POP);
+  const long long col = s.cursor < b.width - 1 ? s.cursor : b.width - 1;
+  const bool have = s.cursor < k.n_ev;
+  // The bank is read only where a pop uses it; elsewhere no result
+  // depends on these three values.
+  const bool read = pop && have;
+  const long long at = k.tr * b.width + col;
+  const double t_tr = read ? b.times[at] : inf;
+  const int k_tr = read ? b.kinds[at] : -1;
+  const double w_ev = read ? b.wins[at] : -1.0;
+  double min_t = s.def_time[0];
+#pragma unroll
+  for (int q = 1; q < DEF_SLOTS; ++q) min_t = dmin(min_t, s.def_time[q]);
+  // First minimum of the sequence numbers among the slots at min_t.
+  int slot = 0;
+  int best = (s.def_time[0] == min_t) ? s.def_seq[0] : BIG_SEQ;
+#pragma unroll
+  for (int q = 1; q < DEF_SLOTS; ++q) {
+    const int v = (s.def_time[q] == min_t) ? s.def_seq[q] : BIG_SEQ;
+    slot = (v < best) ? q : slot;
+    best = (v < best) ? v : best;
+  }
+
+  const bool none_left = pop && is_inf(t_tr) && is_inf(min_t);
+  s.pc = none_left ? PC_FINAL : s.pc;
+  target = none_left ? inf : target;
+
+  const bool take_trace = pop && !none_left && (t_tr <= min_t);
+  s.cursor = s.cursor + (take_trace ? 1 : 0);
+  const bool take_def = pop && !none_left && !take_trace;
+#pragma unroll
+  for (int q = 0; q < DEF_SLOTS; ++q) {
+    const bool clear = (q == slot) && take_def;
+    s.def_time[q] = clear ? inf : s.def_time[q];
+    s.def_seq[q] = clear ? BIG_SEQ : s.def_seq[q];
+  }
+
+  const bool uf = take_trace && (k_tr == FAULT_UNPRED);
+  const bool is_fault = take_def || uf;
+  s.count[C_FAULTS] += uf ? 1 : 0;
+  const double f_t = take_def ? min_t : t_tr;
+  target = is_fault ? f_t : target;
+  s.pc = is_fault ? PC_FAULT : s.pc;
+
+  const bool is_sil = take_trace && (k_tr == SILENT);
+  target = is_sil ? t_tr : target;
+  s.pc = is_sil ? PC_SILENT : s.pc;
+
+  const bool is_pred = take_trace && (k_tr != FAULT_UNPRED) &&
+                       (k_tr != SILENT);
+  s.count[C_PREDICTIONS] += is_pred ? 1 : 0;
+  const bool is_true = is_pred && (k_tr == FAULT_PRED);
+  s.count[C_FAULTS] += is_true ? 1 : 0;
+
+  const double w_eff = (w_ev < 0.0) ? k.window : w_ev;
+  const bool draw_win = is_true && (w_eff > 0.0);
+  // The draw is read only where it is used (draw_win).
+  const double u = draw_win ? draw_at(k, s.cur) : 0.0;
+  s.cur = s.cur + (draw_win ? 1 : 0);
+  const double ckpt_start = t_tr - kc.cp;
+  const bool honour = is_pred && (ckpt_start >= now);
+  s.pc = honour ? PC_PRED : s.pc;
+  target = honour ? ckpt_start : target;
+  const bool ignored = is_pred && !honour;
+  s.pred_t = honour ? t_tr : s.pred_t;
+  s.pred_true = honour ? is_true : s.pred_true;
+  s.pred_win = honour ? w_eff : s.pred_win;
+  s.count[C_IGNORED] += ignored ? 1 : 0;
+
+  // ---- _body: the in-window fault date t + (w*u + zero), product rounded
+  // first, then its deferred-fault push.
+  const double zero = __dsub_rn(now, now);
+  const double off = __dadd_rn(__dmul_rn(w_eff, u), zero);
+  const double fd = draw_win ? __dadd_rn(t_tr, off) : t_tr;
+  s.pred_fd = honour ? fd : s.pred_fd;
+  push_fault(s, ignored && is_true, fd);
+
+  // ---- _arrive
+  const bool active = st[I_FIN] == 0;
+  int phase = st[I_PHASE];
+  double phase_end = f[F_PHEND];
+  double done = f[F_DONE];
+  double saved = f[F_SAVED];
+  const double saved_clean = f[F_SVCLEAN];
+  double win_end = f[F_WINEND];
+  double win_rem = f[F_WINREM];
+  int n_dirty = st[I_NDIRTY];
+  int corrupted = st[I_CORR];
+
+  // Fault arrival, with the deep rollback past dirty snapshots.
+  const bool arr_f = active && (s.pc == PC_FAULT) && (now >= target);
+  const bool deep = n_dirty > 0;
+  const double base = deep ? saved_clean : saved;
+  double lost = done - base;
+  const bool in_phase = (phase != WORK) && !is_inf(phase_end);
+  const double dur =
+      phase == CKPT ? kc.c
+      : phase == PROCKPT ? kc.cp
+      : phase == DOWN ? kc.d
+      : phase == RECOVER ? kc.r
+      : phase == VERIFY ? f[F_VCOST] : 0.0;
+  const double elapsed = dur - (phase_end - now);
+  const double pos = dmax(0.0, elapsed);
+  const bool ckpt_like = in_phase && ((phase == CKPT) || (phase == PROCKPT) ||
+                                      (phase == VERIFY));
+  lost = lost + (ckpt_like ? pos : 0.0);
+  f[F_TDOWN] = f[F_TDOWN] + ((arr_f && in_phase && !ckpt_like) ? pos : 0.0);
+  f[F_TDOWNT] = f[F_TDOWNT] + ((arr_f && in_phase && (phase == DOWN))
+                               ? pos : 0.0);
+  f[F_TRECOV] = f[F_TRECOV] + ((arr_f && in_phase && (phase == RECOVER))
+                               ? pos : 0.0);
+  f[F_TLOST] = f[F_TLOST] + (arr_f ? lost : 0.0);
+  s.count[C_FAULTS_HIT] += arr_f ? 1 : 0;
+  st[I_NROLL] += (arr_f && (lost > 0.0)) ? 1 : 0;
+  st[I_NDEEP] += (arr_f && deep) ? 1 : 0;
+  saved = (arr_f && deep) ? saved_clean : saved;
+  n_dirty = arr_f ? 0 : n_dirty;
+  corrupted = arr_f ? 0 : corrupted;
+  done = arr_f ? saved : done;
+  phase_end = arr_f ? target + kc.d : phase_end;
+  phase = arr_f ? DOWN : phase;
+  win_end = arr_f ? -inf : win_end;
+  win_rem = arr_f ? inf : win_rem;
+  s.pc = arr_f ? PC_POP : s.pc;
+  target = arr_f ? -inf : target;
+
+  // Silent-error strike.
+  const bool arr_s = active && (s.pc == PC_SILENT) && (now >= target);
+  const bool hit = arr_s && ((phase == WORK) || (phase == CKPT) ||
+                             (phase == PROCKPT) || (phase == VERIFY));
+  s.count[C_SILENT] += hit ? 1 : 0;
+  corrupted = hit ? 1 : corrupted;
+  s.pc = arr_s ? PC_POP : s.pc;
+  target = arr_s ? -inf : target;
+
+  // Prediction arrival: the trust decision.
+  const bool arr_p = active && (s.pc == PC_PRED) && (now >= target);
+  const bool working = arr_p && (phase == WORK);
+  const double offset = s.pred_t - f[F_PSTART];
+  const bool draw_q = working && (k.kind == TRUST_FIXED_Q);
+  const double u2 = draw_q ? draw_at(k, s.cur) : 0.0;
+  s.cur = s.cur + (draw_q ? 1 : 0);
+  const bool trusted =
+      working && ((k.kind == TRUST_ALWAYS) ||
+                  ((k.kind == TRUST_THRESHOLD) && (offset >= k.tparam)) ||
+                  (draw_q && (u2 < k.tparam)));
+  phase = trusted ? PROCKPT : phase;
+  phase_end = trusted ? s.pred_t : phase_end;
+  s.count[C_TRUSTED] += trusted ? 1 : 0;
+  s.count[C_TRUSTED_TRUE] += (trusted && s.pred_true) ? 1 : 0;
+  const bool arm = trusted && k.within && (s.pred_win > 0.0);
+  win_end = arm ? s.pred_t + s.pred_win : win_end;
+  s.count[C_IGNORED] += (arr_p && !working) ? 1 : 0;
+  push_fault(s, arr_p && s.pred_true, s.pred_fd);
+  s.pc = arr_p ? PC_POP : s.pc;
+  target = arr_p ? -inf : target;
+
+  f[F_TARGET] = target;
+  f[F_PHEND] = phase_end;
+  f[F_DONE] = done;
+  f[F_SAVED] = saved;
+  f[F_WINEND] = win_end;
+  f[F_WINREM] = win_rem;
+  st[I_PHASE] = phase;
+  st[I_NDIRTY] = n_dirty;
+  st[I_CORR] = corrupted;
+
+  // ---- the schedule steps
+#pragma unroll 1
+  for (int p = 0; p < ADV_PASSES; ++p) advance(f, st, kc);
+}
+
+// One thread per lane: load the lane's state, run its iterations until it
+// finished, overflowed or ran `cap` of them, write it back once.  The flag
+// collects bit 0 (a lane is unfinished) and bit 1 (a lane overflowed).
+__global__ void __launch_bounds__(LOOP_THREADS)
+lane_loop_kernel(double* F, int* I, long long* Q, const double* tab,
+                 long long tab_width, Bank b, long long lanes, int cap,
+                 Consts kc, int* flag) {
+  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= lanes) return;
+  double f[N_F];
+  int st[N_I];
+  Lane s;
+#pragma unroll
+  for (int row = 0; row < N_F; ++row) f[row] = F[row * lanes + j];
+#pragma unroll
+  for (int row = 0; row < N_I; ++row) st[row] = I[row * lanes + j];
+  s.pred_t = F[LF_PRED_T * lanes + j];
+  s.pred_fd = F[LF_PRED_FD * lanes + j];
+  s.pred_win = F[LF_PRED_WIN * lanes + j];
+#pragma unroll
+  for (int q = 0; q < DEF_SLOTS; ++q) {
+    s.def_time[q] = F[(LF_DEF + q) * lanes + j];
+    s.def_seq[q] = I[(LI_DEFSEQ + q) * lanes + j];
+  }
+  s.pc = I[LI_PC * lanes + j];
+  s.pred_true = I[LI_PRED_TRUE * lanes + j] != 0;
+  s.next_seq = I[LI_NEXT_SEQ * lanes + j];
+  s.overflow = I[LI_OVERFLOW * lanes + j] != 0;
+#pragma unroll
+  for (int c = 0; c < N_COUNTS; ++c) s.count[c] = I[(LI_COUNTS + c) * lanes + j];
+  s.cursor = Q[LQ_CURSOR * lanes + j];
+  s.cur = Q[LQ_CUR * lanes + j];
+  LaneConst k;
+  k.tr = Q[LQ_TR * lanes + j];
+  k.n_ev = Q[LQ_NEV * lanes + j];
+  k.kind = I[LI_KIND * lanes + j];
+  k.within = I[LI_WITHIN * lanes + j] != 0;
+  k.tparam = F[LF_TPARAM * lanes + j];
+  k.window = F[LF_WINDOW * lanes + j];
+  k.tab = tab + j * tab_width;
+  k.tab_width = tab_width;
+
+  int it = 0;
+  while (it < cap && st[I_FIN] == 0 && !s.overflow) {
+    lane_body(f, st, s, k, b, kc);
+    ++it;
+  }
+
+#pragma unroll
+  for (int row = 0; row < N_F; ++row) F[row * lanes + j] = f[row];
+#pragma unroll
+  for (int row = 0; row < N_I; ++row) I[row * lanes + j] = st[row];
+  F[LF_PRED_T * lanes + j] = s.pred_t;
+  F[LF_PRED_FD * lanes + j] = s.pred_fd;
+  F[LF_PRED_WIN * lanes + j] = s.pred_win;
+#pragma unroll
+  for (int q = 0; q < DEF_SLOTS; ++q) {
+    F[(LF_DEF + q) * lanes + j] = s.def_time[q];
+    I[(LI_DEFSEQ + q) * lanes + j] = s.def_seq[q];
+  }
+  I[LI_PC * lanes + j] = s.pc;
+  I[LI_PRED_TRUE * lanes + j] = s.pred_true ? 1 : 0;
+  I[LI_NEXT_SEQ * lanes + j] = s.next_seq;
+  I[LI_OVERFLOW * lanes + j] = s.overflow ? 1 : 0;
+#pragma unroll
+  for (int c = 0; c < N_COUNTS; ++c) I[(LI_COUNTS + c) * lanes + j] = s.count[c];
+  Q[LQ_CURSOR * lanes + j] = s.cursor;
+  Q[LQ_CUR * lanes + j] = s.cur;
+  Q[LQ_ITERS * lanes + j] += it;
+  const int bits = (st[I_FIN] == 0 ? 1 : 0) | (s.overflow ? 2 : 0);
+  if (bits) atomicOr(flag, bits);
+}
+
 }  // namespace
 
 // C entry point, loaded with ctypes.  Launches on `stream` and returns
@@ -280,5 +635,30 @@ extern "C" int event_step_launch(const void* fs_in, const void* is_in,
       static_cast<const double*>(fs_in), static_cast<const int*>(is_in),
       static_cast<double*>(fs_out), static_cast<int*>(is_out), lanes,
       passes, k);
+  return (int)cudaGetLastError();
+}
+
+// C entry point of the lane loop, loaded with ctypes: F, I, Q are updated
+// in place and `flag` (one int, zeroed by the caller) collects the stop
+// bits.  Launches on `stream`, returns cudaGetLastError(), does not
+// synchronise.
+extern "C" int lane_loop_launch(void* F, void* I, void* Q, const void* tab,
+                                long long tab_width, const void* times,
+                                const void* kinds, const void* wins,
+                                long long bank_width, long long lanes,
+                                int cap, double c, double cp, double d,
+                                double r, double time_base, void* flag,
+                                void* stream) {
+  if (lanes <= 0) return 0;
+  const long long blocks = (lanes + LOOP_THREADS - 1) / LOOP_THREADS;
+  const Consts k{c, cp, d, r, time_base};
+  const Bank b{static_cast<const double*>(times),
+               static_cast<const int*>(kinds),
+               static_cast<const double*>(wins), bank_width};
+  lane_loop_kernel<<<(unsigned)blocks, LOOP_THREADS, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<double*>(F), static_cast<int*>(I),
+      static_cast<long long*>(Q), static_cast<const double*>(tab),
+      tab_width, b, lanes, cap, k, static_cast<int*>(flag));
   return (int)cudaGetLastError();
 }

@@ -13,11 +13,25 @@ Metric names used by the instrumented call sites:
 
 ======================================  ==================================
 ``torch.chunks``                        lane chunks driven (counter)
-``torch.iterations``                    loop iterations over all chunks
-``torch.run_s``                         chunk seconds (host clock, synced)
+``torch.iterations``                    per chunk, the largest number of
+                                        iterations a lane ran; summed over
+                                        chunks
+``torch.loop_calls``                    ``lane_loop`` calls of the host
+                                        loop (each a kernel launch on the
+                                        card, a plain-loop run on the CPU)
+``torch.tables_s``                      host seconds drawing the lanes'
+                                        uniforms (``_draw_tables``)
+``torch.upload_s``                      seconds building chunk state and
+                                        the bank on the device
+``torch.run_s``                         host-loop seconds (each call's
+                                        flag read back: synced)
+``torch.readback_s``                    seconds copying results back
 ``torch.lanes_per_s``                   lanes/second of the last call
 ``engine.deferred_overflows``           deferred-fault capacity trips
-``kernels.event_step.launches``         event_step kernel launches
+``kernels.lane_loop.launches``          lane_loop kernel launches
+``kernels.event_step.launches``         event_step kernel launches (0 on
+                                        the lane engine's CUDA path, whose
+                                        advance runs in lane_loop)
 ======================================  ==================================
 """
 

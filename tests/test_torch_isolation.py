@@ -212,6 +212,7 @@ def test_redeclared_constants_match_reference():
     import repro_torch.core.simulator as sim
     import repro_torch.core.traces as traces
     import repro_torch.kernels.event_step as es
+    import repro_torch.kernels.lane_loop as ll
 
     assert es.F_FIELDS == ref_es.F_FIELDS and es.I_FIELDS == ref_es.I_FIELDS
     assert (es.N_F, es.N_I) == (ref_es.N_F, ref_es.N_I) == (23, 12)
@@ -225,14 +226,17 @@ def test_redeclared_constants_match_reference():
     for name in ("FAULT_UNPRED", "FAULT_PRED", "FALSE_PRED", "SILENT"):
         assert getattr(traces, name) == getattr(ref_traces, name), name
     assert sim.WINDOW_MODES == ref_sim.WINDOW_MODES
-    codes = ("_TRUST_NEVER", "_TRUST_ALWAYS", "_TRUST_THRESHOLD",
-             "_TRUST_FIXED_Q", "_WMODE_INSTANT", "_WMODE_WITHIN")
-    for name in codes:
+    # The lane engine keeps its window codes; its loop body (lane_loop)
+    # the trust codes and the rest.
+    codes = (("_TRUST_NEVER", ll), ("_TRUST_ALWAYS", ll),
+             ("_TRUST_THRESHOLD", ll), ("_TRUST_FIXED_Q", ll),
+             ("_WMODE_INSTANT", bt), ("_WMODE_WITHIN", bt))
+    for name, mod in codes:
         assert getattr(batch, name) == getattr(ref_batch, name) \
-            == getattr(bt, name) == getattr(ref_bj, name), name
+            == getattr(mod, name) == getattr(ref_bj, name), name
     for name in ("_PC_POP", "_PC_FAULT", "_PC_PRED", "_PC_FINAL",
                  "_PC_SILENT", "_DEF_SLOTS", "_ADV_PASSES", "_BIG_SEQ"):
-        assert getattr(bt, name) == getattr(ref_bj, name), name
+        assert getattr(ll, name) == getattr(ref_bj, name), name
 
 
 def test_redeclared_checkpoint_constants_match_reference(tmp_path):

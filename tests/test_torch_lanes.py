@@ -34,7 +34,7 @@ from repro.core.traces import (FALSE_PRED, FAULT_PRED, FAULT_UNPRED,  # noqa: E4
                                EventTrace, Exponential, make_event_trace)
 from repro.core.waste import Platform as RefPlatform  # noqa: E402
 
-import repro_torch.core.batch_torch as batch_torch  # noqa: E402
+import repro_torch.kernels.lane_loop as lane_loop_mod  # noqa: E402
 from repro_torch.core import simulator as sim  # noqa: E402
 from repro_torch.core.batch import simulate_batch, simulate_lanes  # noqa: E402
 from repro_torch.core.traces import traces_from_numpy  # noqa: E402
@@ -198,9 +198,9 @@ def test_chunked_matches_unchunked(chunk):
 def test_stop_test_cadence_changes_no_bit(monkeypatch):
     """Testing for the end every iteration (the JAX loop's cadence) and
     every ``_STOP_EVERY`` iterations give the same bits."""
-    assert batch_torch._STOP_EVERY > 1
+    assert lane_loop_mod._STOP_EVERY > 1
     ref = _port_run()
-    monkeypatch.setattr(batch_torch, "_STOP_EVERY", 1)
+    monkeypatch.setattr(lane_loop_mod, "_STOP_EVERY", 1)
     _assert_bitwise(ref, _port_run(), "stop test every iteration")
 
 
