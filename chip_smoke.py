@@ -8,9 +8,12 @@ result):
 1. device    - require CUDA; print the card's name and power limit.
 2. build     - build every CUDA source (event_step.cu, ckpt_delta.cu,
                flash_attention.cu, decode_attention.cu) from the checkout
-               with nvcc, one process each, started together; the
-               event_step PTX (event_step_kernel and lane_loop_kernel) has
-               no fma and multiplies with mul.rn.f64, the ckpt_delta PTX
+               with nvcc, one process each, started together, and print
+               each kernel's registers and spills; the event_step PTX
+               (event_step_kernel and each of lane_loop_kernel's four
+               instantiations: the 8 register slots or the wide route,
+               static or adaptive lanes) has no fma and multiplies with
+               mul.rn.f64, the ckpt_delta PTX
                divides with div.rn.f32, rounds with cvt.rni and has no fma;
                the attention
                PTX divides with div.rn.f32 (no fast-math division), and
@@ -28,6 +31,17 @@ result):
                policies, FixedProbability's draws), each at the engine's
                per-launch cap and at a cap of 1; the grid also CUDA ==
                CPU on every makespan.
+3a. adaptive - lane_loop_kernel's adaptive instantiation: the five adaptive
+               configurations of ``tests/test_jax_engine.py:103-134``
+               (plain, halflife, estimate_mu, the exact model, mu +
+               halflife + "within") x 40 traces of the study's bank, each
+               started on its prior's plan, through the engine on CUDA
+               and on the CPU, ``==`` on every BatchResult field; the
+               chunk's kernel ``==`` the plain loop call for call (the
+               host's re-plan rounds between) at the engine's cap and at
+               a cap of 1; launches, re-plan rounds, re-plans, the host's
+               re-plan seconds, and the chunk's device time (profiler)
+               beside its bound.
 4. main path - the paper's study at the scale ``BENCH_simulator.json``
                records (n = 65,536 processors, 200 traces): rfo,
                optimal_prediction and BestPeriod(rfo) through the three
@@ -50,6 +64,24 @@ result):
                study's chunk by CUDA events and profiler device time,
                beside its bound, the plain loop's time on the same chunk
                (phase 3's run) and the longest lane's ns per iteration.
+6a. predictor study - ``benchmarks/predictor_sweep.py``'s five predictor
+               cells (oracle, lead_time, bursty, two drifting ramps) at its
+               non-quick size (25 traces, n = 65,536, the paper's
+               platform) through the port's own ``ScenarioSpec``,
+               ``PredictorSpec`` and ``build_strategy``: rfo,
+               optimal_prediction and adaptive through the three steps of
+               ``evaluate_strategies`` on CUDA, the launch counts set to 0
+               just before and read just after (lane_loop > 0, event_step
+               0); lanes/s, launches per chunk, re-plan rounds and the host
+               split of each cell; then the first 4 traces of every cell
+               and strategy on the CPU in one run, ``==``.
+6b. convergence - the sweep's convergence cell (stale prior r = 0.3,
+               p = 0.99; 20 traces, 40,000 years) on CUDA, held to the
+               script's own claims (``predictor_sweep.py:91-140``).
+6c. overflow - 64 lanes of a trace with 12 faults in flight (more than
+               the kernel's 8 register slots) beside 192 other lanes: the
+               chunk through the 8-slot kernel, only the 64 overflowed
+               lanes rerun through the wide route (16 slots), CUDA == CPU.
 7. ckpt kernels - quantize_delta / dequantize_delta kernels ``==`` their
                plain versions (q, scales, restored bits) at 123, 256,
                1000 x 37 and 4096 x 16 elements in fp32 and bf16, with a
@@ -122,7 +154,8 @@ result):
 
 The last two lines are the ``kernels`` JSON line (all five TPU kernels;
 the event_step entry reports lane_loop_kernel, which carries the advance
-on the main path) and
+on the main path, with its adaptive instantiation's check, time, launches
+and bound from phase 3a and the predictor study's launches) and
 ``{"ok": true, "device": {...}}``.  Run from a checkout: it imports the
 port from ``src/`` beside it and builds into ``build/repro_torch/``.  The
 checkpoint phases write about 27 GB into a temporary directory (under
@@ -135,6 +168,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -217,9 +251,29 @@ PTX_RULES = {
 }
 
 
+def _ptx_entries(ptx: str) -> dict[str, str]:
+    """Each kernel entry's PTX by its (mangled) name."""
+    out = {}
+    for part in re.split(r"\.entry\s+", ptx)[1:]:
+        out[part.split("(")[0].strip()] = part
+    return out
+
+
+def _entry_label(mangled: str) -> str:
+    """A readable name for a kernel entry: lane_loop_kernel's template
+    flags spelled out (WIDE, ADAPTIVE)."""
+    m = re.search(r"lane_loop_kernelILb([01])ELb([01])E", mangled)
+    if m:
+        wide, adaptive = (("true" if v == "1" else "false")
+                          for v in m.groups())
+        return f"lane_loop_kernel<wide={wide}, adaptive={adaptive}>"
+    m = re.search(r"[a-z][a-z_]*_kernel", mangled)
+    return m.group(0) if m else mangled
+
+
 def phase_build() -> None:
     """Build every source with its own nvcc, all started together, and
-    read each one's PTX."""
+    read each one's PTX; print each kernel's registers and spills."""
     from repro_torch.kernels import _build
     names = sorted(PTX_RULES)
     t0 = time.perf_counter()
@@ -233,9 +287,13 @@ def phase_build() -> None:
         f"parallel)")
     for name, info, ptx in zip(names, infos, ptxs):
         log(f"[build] {name}: nvcc {info['seconds']:.2f} s")
+        entry = "?"
         for line in info["log"].splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                entry = _entry_label(m.group(1))
             if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+                log(f"[build] {name}: {entry}: {line.strip()}")
         need, banned = PTX_RULES[name]
         missing = [w for w in need if w not in ptx]
         found = [w for w in banned if w in ptx]
@@ -244,6 +302,20 @@ def phase_build() -> None:
                                f"{found}")
         log(f"[build] {name}: PTX has {list(need)} and none of "
             f"{list(banned)}")
+        if name == "event_step":
+            # Each lane-loop instantiation on its own: the bitwise
+            # contract holds in every one.
+            loops = {_entry_label(k): v
+                     for k, v in _ptx_entries(ptx).items()
+                     if "lane_loop_kernel" in k}
+            if len(loops) != 4:
+                raise RuntimeError(f"event_step: {len(loops)} lane-loop "
+                                   f"instantiations in the PTX, not 4")
+            for label, body in sorted(loops.items()):
+                if "mul.rn.f64" not in body or "fma.rn.f64" in body:
+                    raise RuntimeError(f"{label}: PTX lacks mul.rn.f64 or "
+                                       f"holds fma.rn.f64")
+                log(f"[build] {label}: PTX has mul.rn.f64, no fma.rn.f64")
 
 
 def _max_abs_err(a, b) -> float:
@@ -313,11 +385,12 @@ def _record_chunks() -> tuple[list, object]:
     return seen, restore
 
 
-def _check_lane_loop(lanes, g, what: str) -> dict:
+def _check_lane_loop(lanes, g, what: str, replan=None) -> dict:
     """lane_loop_kernel == the plain loop on one CUDA chunk, at the
-    engine's cap and at a cap of 1: every row of F, I and Q on the bits.
-    Returns the plain run's milliseconds (CUDA events), the largest
-    per-lane iteration count and the largest difference seen."""
+    engine's cap and at a cap of 1: every row of F, I and Q on the bits
+    (for adaptive lanes, call for call, the host's re-plan rounds
+    between).  Returns the plain run's milliseconds (CUDA events), the
+    largest per-lane iteration count and the largest difference seen."""
     import math
 
     import torch
@@ -325,12 +398,18 @@ def _check_lane_loop(lanes, g, what: str) -> dict:
     from repro_torch.kernels import event_step as es
     from repro_torch.kernels.lane_loop import LQ_ITERS, lane_loop, lane_loop_ref
     counts = lane_loop.launches, es.event_step.launches
+    rounds = [0]
+
+    def counted(chunk):
+        rounds[0] += 1
+        return replan(chunk)
+
     plain = lanes.clone()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    _run_chunk(lane_loop_ref, plain, g, _LAUNCH_CAP)
+    _run_chunk(lane_loop_ref, plain, g, _LAUNCH_CAP, counted)
     end.record()
     torch.cuda.synchronize()
     plain_ms = start.elapsed_time(end)
@@ -339,13 +418,15 @@ def _check_lane_loop(lanes, g, what: str) -> dict:
     for cap in (_LAUNCH_CAP, 1):
         kern = lanes.clone()
         before = lane_loop.launches
-        calls = _run_chunk(lane_loop, kern, g, cap)
+        rounds[0] = 0
+        calls = _run_chunk(lane_loop, kern, g, cap, counted)
         torch.cuda.synchronize()
         if lane_loop.launches - before != calls or \
-                calls > math.ceil(iters / cap):
+                calls > math.ceil(iters / cap) + rounds[0]:
             raise AssertionError(f"lane_loop {what}, cap {cap}: {calls} "
                                  f"calls, {lane_loop.launches - before} "
-                                 f"launches for {iters} iterations")
+                                 f"launches for {iters} iterations and "
+                                 f"{rounds[0]} re-plan rounds")
         for name in ("f", "i", "q"):
             a, b = getattr(kern, name), getattr(plain, name)
             max_err = max(max_err, _max_abs_err(a.double(), b.double()))
@@ -357,7 +438,7 @@ def _check_lane_loop(lanes, g, what: str) -> dict:
                                      f"{bad} lanes")
         log(f"[kernel] lane_loop {what}, {lanes.f.shape[1]} lanes, cap "
             f"{cap}: kernel == plain on every row ({calls} launches, "
-            f"longest lane {iters} iterations)")
+            f"{rounds[0]} re-plan rounds, longest lane {iters} iterations)")
     lane_loop.launches, es.event_step.launches = counts
     return {"plain_ms": plain_ms, "iterations": iters, "max_abs_err": max_err}
 
@@ -695,10 +776,8 @@ def phase_loop_timing(check: dict) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.batch_torch import _LAUNCH_CAP
-    from repro_torch.kernels.lane_loop import (CONST_BYTES_PER_LANE,
-                                               FLOPS_PER_LANE_ITER, LQ_ITERS,
-                                               STATE_BYTES_PER_LANE,
-                                               lane_loop)
+    from repro_torch.kernels.lane_loop import (FLOPS_PER_LANE_ITER, LQ_ITERS,
+                                               bytes_per_lane, lane_loop)
     chunk, g = check["chunk"], check["bank"]
     n = chunk.f.shape[1]
     launches = lane_loop.launches
@@ -730,7 +809,8 @@ def phase_loop_timing(check: dict) -> dict:
                  if kern else None)
     lane_loop.launches = launches           # timing launches do not count
     bank_bytes = g.times.numel() * (8 + 4 + 8)
-    nbytes = (n * (2 * STATE_BYTES_PER_LANE + CONST_BYTES_PER_LANE)
+    const_bytes, state_bytes = bytes_per_lane()
+    nbytes = (n * (2 * state_bytes + const_bytes)
               + chunk.tab.numel() * 8 + bank_bytes)
     total_iters = int(iters.sum())
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -751,6 +831,442 @@ def phase_loop_timing(check: dict) -> dict:
     return {"ms": ms, "device_ms": device_ms, "plain_ms": check["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by,
             "ns_per_iteration": ns_iter}
+
+
+# -- the predictor study (adaptive lanes, generative predictors) -------------
+
+# The adaptive configurations of tests/test_jax_engine.py:103-134 (plain,
+# halflife, estimate_mu, the exact model) and the heaviest combination
+# (online mu, EW decay and "within" windows), each started on its prior's
+# plan.  The paper scenario's traces carry exact dates, so the lanes take
+# an inexact window; "within" lanes checkpoint every 1,200 s in it
+# (> C_p = 600 s).
+ADAPTIVE_BASE = dict(prior_recall=0.5, prior_precision=0.5, min_preds=8,
+                     min_faults=4, tol=0.02)
+ADAPTIVE_CONFIGS = (("plain", {}, "instant"),
+                    ("halflife", dict(halflife=64.0), "instant"),
+                    ("estimate_mu", dict(estimate_mu=True), "instant"),
+                    ("exact_model", dict(model_order="exact"), "instant"),
+                    ("mu_halflife_within",
+                     dict(halflife=64.0, estimate_mu=True), "within"))
+ADAPTIVE_TRACES = 40        # of the study's bank, per configuration
+ADAPTIVE_WINDOW = 1800.0
+ADAPTIVE_WPERIOD = 1200.0
+STUDY_TRACES = 25           # benchmarks/predictor_sweep.py, non-quick
+STUDY_CPU_TRACES = 4        # the CPU cross-check, per cell
+# predictor_sweep.py:69: the convergence cell's stale prior.
+STALE_PRIOR = {"prior_recall": 0.3, "prior_precision": 0.99, "tol": 0.02}
+
+
+def _predictor_axis(sc) -> list:
+    """predictor_sweep.py:48-66: the swept predictor families, the
+    drifting ramps placed inside the job window."""
+    from repro_torch.experiments import PredictorSpec
+    drift = {"drift_start": sc.start, "drift_span": 2.0 * sc.time_base}
+    return [
+        ("oracle", PredictorSpec("oracle")),
+        ("lead_time", PredictorSpec("lead_time", {"lead_mean": 3600.0,
+                                                  "min_lead": 600.0})),
+        ("bursty", PredictorSpec("bursty", {"burst_size": 4.0,
+                                            "burst_gap": 900.0})),
+        ("drift_slow", PredictorSpec("drifting", {"precision_end": 0.6,
+                                                  **drift})),
+        ("drift_fast", PredictorSpec("drifting", {"precision_end": 0.25,
+                                                  "recall_end": 0.6,
+                                                  **drift})),
+    ]
+
+
+def _record_runs() -> tuple[list, object]:
+    """Wrap the engine's host loop so that each chunk's state is cloned at
+    its start, with its bank and re-plan callback.  Returns the records
+    and a function that removes the wrapper."""
+    import repro_torch.core.batch_torch as bt
+    real = bt._run_chunk
+    seen = []
+
+    def recording(loop, lanes, g, cap, replan=None):
+        seen.append((lanes.clone(), g, replan))
+        return real(loop, lanes, g, cap, replan)
+
+    bt._run_chunk = recording
+
+    def restore() -> None:
+        bt._run_chunk = real
+    return seen, restore
+
+
+def _host_split(reg, wall: float) -> str:
+    split = {key: reg.timers.get(f"torch.{key}_s", 0.0)
+             for key in ("tables", "upload", "run", "replan", "readback")}
+    rest = wall - sum(v for k, v in split.items() if k != "replan")
+    return (f"draw tables {split['tables']:.4f} s, uploads "
+            f"{split['upload']:.4f} s, host loop {split['run']:.4f} s (of "
+            f"it re-plans on the host {split['replan']:.4f} s), read-backs "
+            f"{split['readback']:.4f} s, the rest {rest:.4f} s")
+
+
+def phase_adaptive(study: dict) -> dict:
+    """lane_loop_kernel<adaptive> on the five adaptive configurations over
+    the paper scenario's traces: the engine on CUDA and on the CPU, ==
+    on every BatchResult field; the recorded chunk's kernel == the plain
+    loop at the engine's cap and at a cap of 1; its device time, bound
+    and re-plan rounds."""
+    import math
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.batch import simulate_batch
+    from repro_torch.core.batch_torch import _LAUNCH_CAP, _run_chunk
+    from repro_torch.core.simulator import NeverTrust, ThresholdTrust
+    from repro_torch.kernels.lane_loop import (FLOPS_PER_ADAPTIVE_LANE_ITER,
+                                               LQ_ITERS, bytes_per_lane,
+                                               lane_loop)
+    from repro_torch.obs.metrics import MetricsRegistry, set_registry
+    from repro_torch.predictors import AdaptiveConfig
+
+    sc = study["sc"]
+    plat, traces = sc.platform, study["traces"][:ADAPTIVE_TRACES]
+    cfgs, periods, trusts, modes = [], [], [], []
+    for _, extra, mode in ADAPTIVE_CONFIGS:
+        cfg = AdaptiveConfig(**ADAPTIVE_BASE, **extra)
+        t0, thr = cfg.plan(plat, sc.cp, cfg.prior_recall,
+                           cfg.prior_precision)
+        cfgs.append(cfg)
+        periods.append(t0)
+        trusts.append(NeverTrust() if math.isinf(thr) else
+                      ThresholdTrust(thr))
+        modes.append(mode)
+    kw = dict(cp=sc.cp, trust=trusts, adaptive=cfgs,
+              inexact_window=ADAPTIVE_WINDOW, window_mode=modes,
+              window_period=ADAPTIVE_WPERIOD,
+              trace_seeds=[sc.seed + 7919 * i for i in range(len(traces))])
+    reg = MetricsRegistry()
+    prev = set_registry(reg)
+    seen, restore = _record_runs()
+    launches = lane_loop.launches
+    try:
+        t0 = time.perf_counter()
+        on_gpu = simulate_batch(traces, plat, sc.time_base, periods, **kw)
+        wall = time.perf_counter() - t0
+    finally:
+        restore()
+        set_registry(prev)
+    n_launch = lane_loop.launches - launches
+    lane_loop.launches = launches
+    c = reg.counters
+    if not (on_gpu.n_replans.sum(axis=1) > 0).all():
+        raise AssertionError(f"adaptive chunk: a configuration never "
+                             f"re-planned ({on_gpu.n_replans.sum(axis=1)})")
+    n_lanes = len(cfgs) * len(traces)
+    log(f"[adaptive] {len(cfgs)} configurations x {len(traces)} traces "
+        f"({n_lanes} lanes) on CUDA in {wall:.4f} s: {n_launch} lane_loop "
+        f"launches, {c['torch.replan_rounds']} re-plan rounds, "
+        f"{c['engine.replans']} re-plans (per configuration "
+        f"{on_gpu.n_replans.sum(axis=1).tolist()}), longest lane "
+        f"{c['torch.iterations']} iterations; {_host_split(reg, wall)}")
+    t0 = time.perf_counter()
+    on_cpu = simulate_batch(traces, plat, sc.time_base, periods,
+                            device="cpu", **kw)
+    t_cpu = time.perf_counter() - t0
+    _assert_same(on_gpu, on_cpu, "adaptive chunk, CUDA vs CPU")
+    log(f"[adaptive] CUDA == CPU on every BatchResult field (n_replans, "
+        f"final_period, final_threshold and est_* included; cpu "
+        f"{t_cpu:.2f} s)")
+    chunk, g, replan = seen[0]
+    if not chunk.adaptive or chunk.slots != 8:
+        raise AssertionError("the adaptive chunk did not take the 8-slot "
+                             "adaptive route")
+    check = _check_lane_loop(chunk, g, "adaptive chunk", replan)
+
+    # The chunk's device time: every launch of one run of the host loop
+    # (the re-plans between them on the host), by the profiler.
+    lanes = chunk.clone()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        calls = _run_chunk(lane_loop, lanes, g, _LAUNCH_CAP, replan)
+        torch.cuda.synchronize()
+        chunk_wall = time.perf_counter() - t0
+    lane_loop.launches = launches
+    kern = [(us, n) for us, key, n in _device_rows(prof)
+            if "lane_loop_kernel" in key]
+    device_ms = sum(us for us, _ in kern) / 1e3 if kern else None
+    iters = lanes.q[LQ_ITERS]
+    const_bytes, state_bytes = bytes_per_lane(adaptive=True)
+    nbytes = (lanes.f.shape[1] * (2 * state_bytes + const_bytes)
+              + lanes.tab.numel() * 8 + g.times.numel() * (8 + 4 + 8))
+    total_iters = int(iters.sum())
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = (FLOPS_PER_ADAPTIVE_LANE_ITER * total_iters / FP64_FLOP_PER_S
+              * 1e3)
+    bound_ms = max(bytes_ms, ops_ms)
+    dev = "not measured" if device_ms is None else f"{device_ms:.5f} ms"
+    log(f"[timing] lane_loop_kernel<adaptive> on the adaptive chunk "
+        f"({lanes.f.shape[1]} lanes): {calls} launches, device time {dev} "
+        f"in all (profiler), host loop {chunk_wall * 1e3:.3f} ms with its "
+        f"re-plans; plain loop {check['plain_ms']:.3f} ms; bound "
+        f"{bound_ms:.6f} ms by "
+        f"{'bytes' if bytes_ms >= ops_ms else 'operations'} (bytes "
+        f"{nbytes}: {bytes_ms:.6f} ms; operations "
+        f"{FLOPS_PER_ADAPTIVE_LANE_ITER} x {total_iters} lane iterations: "
+        f"{ops_ms:.6f} ms)")
+    return {"max_abs_err": check["max_abs_err"], "launches": calls,
+            "ms": device_ms, "plain_ms": check["plain_ms"],
+            "bound_ms": bound_ms, "wall_ms": chunk_wall * 1e3}
+
+
+def phase_predictor_study() -> dict:
+    """benchmarks/predictor_sweep.py's five predictor cells at its
+    non-quick size (25 traces, n = 65,536), rfo, optimal_prediction and
+    adaptive through the three steps of evaluate_strategies on CUDA, the
+    launch counts set to 0 just before and read just after; then the first
+    4 traces of every cell and strategy on the CPU, ==."""
+    import numpy as np
+    import torch
+    from repro_torch.core.batch import simulate_lanes
+    from repro_torch.experiments import (ScenarioSpec, best_means,
+                                         build_strategy,
+                                         candidate_makespans,
+                                         expand_candidates)
+    from repro_torch.kernels.event_step import event_step
+    from repro_torch.kernels.lane_loop import lane_loop
+    from repro_torch.obs.metrics import MetricsRegistry, set_registry
+
+    base = ScenarioSpec(n_traces=STUDY_TRACES)
+    names = ("rfo", "optimal_prediction", "adaptive")
+    cells = []
+    lane_loop.launches = 0
+    event_step.launches = 0
+    for label, spec in _predictor_axis(base):
+        sc = dataclasses.replace(base, predictor=spec)
+        t0 = time.perf_counter()
+        traces = sc.make_traces()
+        make_s = time.perf_counter() - t0
+        unique, rows = expand_candidates(
+            [build_strategy(n, sc) for n in names], sc.platform)
+        reg = MetricsRegistry()
+        prev = set_registry(reg)
+        launches = lane_loop.launches
+        t0 = time.perf_counter()
+        ms = candidate_makespans(traces, sc.platform, sc.time_base, sc.cp,
+                                 unique, seed=sc.seed)
+        means = best_means(ms, rows)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        set_registry(prev)
+        launches = lane_loop.launches - launches
+        for name, m in zip(names, means):
+            if not (np.isfinite(m) and m > sc.time_base):
+                raise AssertionError(f"{label}/{name}: mean makespan {m}")
+        c = reg.counters
+        n_lanes = ms.size
+        log(f"[study] {label}: {n_lanes} lanes ({len(unique)} candidates x "
+            f"{len(traces)} traces) in {wall:.4f} s, {n_lanes / wall:.1f} "
+            f"lanes/s; {c['torch.chunks']} chunk(s), {launches} lane_loop "
+            f"launches ({launches / c['torch.chunks']:.1f} per chunk), "
+            f"{c.get('torch.replan_rounds', 0)} re-plan rounds, "
+            f"{c.get('engine.replans', 0)} re-plans, longest lane "
+            f"{c['torch.iterations']} iterations; {_host_split(reg, wall)}; "
+            f"traces made in {make_s:.4f} s")
+        log(f"[study] {label}: mean makespan (waste) "
+            + ", ".join(f"{n} {m!r} s ({1.0 - sc.time_base / m:.6f})"
+                        for n, m in zip(names, means)))
+        cells.append({"label": label, "sc": sc, "traces": traces,
+                      "unique": unique, "ms": ms, "means": means,
+                      "wall": wall, "launches": launches})
+    total = lane_loop.launches
+    if total <= 0:
+        raise AssertionError("the predictor study launched no lane_loop "
+                             "kernel")
+    if event_step.launches != 0:
+        raise AssertionError(f"the predictor study launched event_step "
+                             f"{event_step.launches} times")
+
+    # The device's busy share over one more pass of the oracle cell.
+    from torch.profiler import ProfilerActivity, profile
+    cell = cells[0]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        candidate_makespans(cell["traces"], cell["sc"].platform,
+                            cell["sc"].time_base, cell["sc"].cp,
+                            cell["unique"], seed=cell["sc"].seed)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    lane_loop.launches = total              # the profiled pass does not count
+    rows = _device_rows(prof)
+    busy = sum(r[0] for r in rows) / 1e6
+    log(f"[profile] predictor study, the oracle cell once more: wall "
+        f"{wall:.4f} s, device busy {busy:.4f} s ({busy / wall:.3f} of "
+        f"wall), {sum(r[2] for r in rows)} device events")
+    oracle = dict(zip(names, cells[0]["means"]))
+    log(f"[study] the sweep's claims at this size: oracle optimal < rfo "
+        f"{oracle['optimal_prediction'] < oracle['rfo']}, adaptive within "
+        f"3% of optimal {oracle['adaptive'] < 1.03 * oracle['optimal_prediction']}, "
+        f"lead_time optimal > oracle optimal "
+        f"{cells[1]['means'][1] > oracle['optimal_prediction']}, drift_fast "
+        f"optimal > oracle optimal "
+        f"{cells[4]['means'][1] > oracle['optimal_prediction']}")
+
+    # The CPU cross-check: the first traces of every cell and candidate,
+    # all in one plain run over the cells' banks side by side.
+    bank, lanes = [], []
+    for k, cell in enumerate(cells):
+        off = len(bank)
+        bank += cell["traces"][:STUDY_CPU_TRACES]
+        lanes += [(k, ci, t, off + t) for ci in range(len(cell["unique"]))
+                  for t in range(STUDY_CPU_TRACES)]
+    sc = cells[0]["sc"]
+    strat = [cells[k]["unique"][ci] for k, ci, _, _ in lanes]
+    t0 = time.perf_counter()
+    on_cpu = simulate_lanes(
+        bank, sc.platform, sc.time_base, cp=sc.cp,
+        trace_indices=[ln[3] for ln in lanes],
+        periods=[float(s.period) for s in strat],
+        trusts=[s.trust for s in strat],
+        windows=[s.inexact_window for s in strat],
+        window_modes=[s.window_mode for s in strat],
+        window_periods=[s.window_period for s in strat],
+        adaptives=[s.adaptive for s in strat],
+        seeds=[sc.seed + 7919 * ln[2] for ln in lanes], device="cpu")
+    t_cpu = time.perf_counter() - t0
+    want = np.array([cells[k]["ms"][ci, t] for k, ci, t, _ in lanes])
+    if not (want.view(np.int64) == on_cpu.view(np.int64)).all():
+        raise AssertionError("predictor study: CUDA != CPU on the first "
+                             f"{STUDY_CPU_TRACES} traces")
+    log(f"[study] {len(lanes)} lanes (5 cells x 3 strategies x first "
+        f"{STUDY_CPU_TRACES} traces): CUDA == CPU on every makespan (cpu "
+        f"{t_cpu:.2f} s)")
+    return {"launches": total, "cells": [
+        {k: cell[k] for k in ("label", "wall", "launches")} | {
+            "lanes": int(cell["ms"].size)} for cell in cells]}
+
+
+def phase_convergence() -> None:
+    """predictor_sweep.py's convergence cell (stale prior, 20 traces,
+    40,000 years) on CUDA, held to the script's own claims
+    (predictor_sweep.py:91-140)."""
+    import numpy as np
+    from repro_torch.core.batch import simulate_batch
+    from repro_torch.core.prediction import (beta_lim,
+                                             optimal_period_with_prediction)
+    from repro_torch.experiments import (ScenarioSpec, build_strategy,
+                                         evaluate_strategies)
+    from repro_torch.obs.metrics import MetricsRegistry, set_registry
+
+    sc = ScenarioSpec(n_traces=20, time_base_years_total=40000.0)
+    traces = sc.make_traces()
+    plat, tb, cp = sc.platform, sc.time_base, sc.cp
+    ad = build_strategy("adaptive", sc, **STALE_PRIOR)
+    reg = MetricsRegistry()
+    prev = set_registry(reg)
+    t0 = time.perf_counter()
+    batch = simulate_batch(
+        traces, plat, tb, [ad.period], cp=cp, trust=ad.trust,
+        adaptive=ad.adaptive,
+        trace_seeds=[sc.seed + 7919 * i for i in range(len(traces))])
+    wall = time.perf_counter() - t0
+    set_registry(prev)
+    t_true, _, use_true = optimal_period_with_prediction(sc.pp)
+    thr_true = beta_lim(sc.pp)
+    periods = batch.final_period[0]
+    thresholds = batch.final_threshold[0]
+    replans = batch.n_replans[0]
+    r_hat, p_hat = batch.est_recall[0], batch.est_precision[0]
+    rel_t = np.abs(periods - t_true) / t_true
+    rel_thr = np.abs(thresholds - thr_true) / thr_true
+    claims = [
+        ("predictions analytically worth it", use_true),
+        ("every lane re-planned", bool((replans >= 1).all())),
+        ("thresholds finite", bool(np.isfinite(thresholds).all())),
+        ("thresholds within 0.15 of beta_lim", float(rel_thr.max()) < 0.15),
+        ("periods within 0.20 of T* (mean), 0.35 (max)",
+         float(rel_t.mean()) < 0.20 and float(rel_t.max()) < 0.35),
+        ("r-hat within 0.1", abs(float(r_hat.mean()) - sc.recall) < 0.1),
+        ("p-hat within 0.1", abs(float(p_hat.mean()) - sc.precision) < 0.1),
+    ]
+    stale = build_strategy("fixed_period", sc, period=ad.period,
+                           trust_threshold=ad.trust.threshold)
+    m_stale, m_ad = evaluate_strategies(traces, plat, tb, cp, [stale, ad],
+                                        seed=sc.seed)
+    claims.append(("adaptive beats the stale static plan", m_ad < m_stale))
+    c = reg.counters
+    log(f"[convergence] {len(traces)} lanes in {wall:.4f} s: "
+        f"{c['kernels.lane_loop.launches']} launches, "
+        f"{c['torch.replan_rounds']} re-plan rounds, {c['engine.replans']} "
+        f"re-plans (per lane {replans.tolist()}), longest lane "
+        f"{c['torch.iterations']} iterations; {_host_split(reg, wall)}")
+    log(f"[convergence] T* {t_true:.1f} s <- periods mean rel err "
+        f"{float(rel_t.mean()):.4f} (max {float(rel_t.max()):.4f}); "
+        f"beta_lim {thr_true:.1f} s <- thresholds max rel err "
+        f"{float(rel_thr.max()):.4f}; r-hat {float(r_hat.mean()):.4f}, "
+        f"p-hat {float(p_hat.mean()):.4f}; adaptive {m_ad / 86400.0:.4f} d "
+        f"vs stale static {m_stale / 86400.0:.4f} d")
+    failed = [name for name, ok in claims if not ok]
+    if failed:
+        raise AssertionError(f"convergence cell: {failed}")
+    log(f"[convergence] every claim of predictor_sweep.py:91-140 holds")
+
+
+def phase_overflow() -> None:
+    """A trace whose true predictions put 12 faults in flight at once
+    (tests/test_torch_lanes.py:207-222): 64 lanes of it beside 192 other
+    lanes.  The chunk runs through the 8-slot kernel; only the 64
+    overflowed lanes rerun, through the wide route; CUDA == CPU."""
+    import numpy as np
+    from repro_torch.core.batch import simulate_lanes
+    from repro_torch.core.simulator import AlwaysTrust, ThresholdTrust
+    from repro_torch.core.traces import (FAULT_PRED, EventTrace, Exponential,
+                                         make_event_trace)
+    from repro_torch.core.waste import Platform
+    from repro_torch.kernels.lane_loop import lane_loop
+    from repro_torch.obs.metrics import MetricsRegistry, set_registry
+
+    plat = Platform(mu=2500.0, c=60.0, d=10.0, r=30.0)
+    n = 12
+    over = EventTrace(1000.0 + 10.0 * np.arange(n),
+                      np.full(n, FAULT_PRED, dtype=np.int8), 1e7,
+                      np.full(n, 1e6))
+    bank = [over] + [make_event_trace(Exponential(2500.0), 2500.0, 0.7, 0.6,
+                                      100000.0, np.random.default_rng(s))
+                     for s in (20, 21, 22)]
+    tr = np.concatenate([np.zeros(64, np.int64),
+                         1 + np.arange(192) % 3]).astype(np.int64)
+    L = tr.size
+    kw = dict(cp=30.0, trace_indices=tr,
+              periods=np.where(np.arange(L) % 2, 1200.0, 2500.0),
+              trusts=[AlwaysTrust() if j < 64 or j % 2 else
+                      ThresholdTrust(100.0) for j in range(L)],
+              windows=np.full(L, 300.0), seeds=np.arange(L) + 11)
+    reg = MetricsRegistry()
+    prev = set_registry(reg)
+    seen, restore = _record_runs()
+    launches = lane_loop.launches
+    try:
+        on_gpu = simulate_lanes(bank, plat, 30000.0, **kw)
+    finally:
+        restore()
+        set_registry(prev)
+    runs = [(lanes.slots, lanes.f.shape[1]) for lanes, _, _ in seen]
+    if runs != [(8, L), (16, 64)]:
+        raise AssertionError(f"overflow: the runs were {runs}, not the "
+                             f"8-slot chunk and a 16-slot rerun of the 64 "
+                             f"overflowed lanes")
+    if reg.counters["engine.deferred_overflows"] != 1:
+        raise AssertionError("overflow: engine.deferred_overflows not 1")
+    n_launch = lane_loop.launches - launches
+    lane_loop.launches = launches
+    on_cpu = simulate_lanes(bank, plat, 30000.0, device="cpu", **kw)
+    if not (on_gpu.view(np.int64) == on_cpu.view(np.int64)).all():
+        raise AssertionError("overflow: CUDA != CPU")
+    log(f"[overflow] {L} lanes, 64 of them 12 faults in flight: the chunk "
+        f"through lane_loop_kernel<wide=false> ({L} lanes, 8 slots), the 64 "
+        f"overflowed lanes alone rerun through lane_loop_kernel<wide=true> "
+        f"(16 slots), {n_launch} launches; engine.deferred_overflows 1; "
+        f"CUDA == CPU on every makespan")
 
 
 # -- the fault-tolerant trainer's path (ckpt_delta kernels) -------------------
@@ -1800,10 +2316,15 @@ def main() -> int:
     study = study_setup()
     phase_kernel((300, 4800, study["n_lanes"], BIG_LANES))
     loop_check = phase_lane_loop(study)
+    adaptive = phase_adaptive(study)
     main_run = phase_main(study)
     phase_scale()
     phase_timing(study["n_lanes"])
     loop_timing = phase_loop_timing(loop_check)
+    log(f"[done] study phases {time.perf_counter() - t_start:.1f} s")
+    predictor = phase_predictor_study()
+    phase_convergence()
+    phase_overflow()
     log(f"[done] simulation phases {time.perf_counter() - t_start:.1f} s")
     errs = {"quantize_delta": 0.0, "dequantize_delta": 0.0}
     phase_ckpt_kernels(errs)
@@ -1826,7 +2347,13 @@ def main() -> int:
         "max_abs_err": loop_check["max_abs_err"],
         "ms": loop_timing["ms"], "plain_ms": loop_timing["plain_ms"],
         "bound_ms": loop_timing["bound_ms"],
-        "bound_by": loop_timing["bound_by"], "library_ms": None}]
+        "bound_by": loop_timing["bound_by"], "library_ms": None,
+        "adaptive_max_abs_err": adaptive["max_abs_err"],
+        "adaptive_ms": adaptive["ms"],
+        "adaptive_launches": adaptive["launches"],
+        "adaptive_plain_ms": adaptive["plain_ms"],
+        "adaptive_bound_ms": adaptive["bound_ms"],
+        "predictor_study_launches": predictor["launches"]}]
     for name, replaces in (("quantize_delta",
                             "src/repro/kernels/ckpt_delta.py:54"),
                            ("dequantize_delta",

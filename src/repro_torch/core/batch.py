@@ -15,8 +15,8 @@ Equivalence contract: every lane is **bit-for-bit** the JAX package's
 scalar ``simulate(trace, ..., rng=np.random.default_rng(seed))`` and its
 numpy lane engine, for constant periods, the trust policies Never /
 Always / Threshold / FixedProbability, exact and inexact windows,
-per-event windows, both window action modes and the silent-error
-verification knobs.  Adaptive re-planning is not ported yet and raises.
+per-event windows, both window action modes, the silent-error
+verification knobs and adaptive re-planning.
 """
 
 from __future__ import annotations
@@ -367,8 +367,10 @@ def simulate_batch(
         or "within" (the JAX package's ``simulate`` documents both).
       window_period: scalar or per-candidate in-window proactive period
         T_p (> C_p) for "within" candidates.
-      adaptive: adaptive re-planning configs; not ported yet — anything
-        but ``None`` raises ``NotImplementedError``.
+      adaptive: one :class:`repro_torch.predictors.AdaptiveConfig` (or one
+        per candidate, ``None`` entries static): the lane re-plans its
+        period and trust threshold from online (r, p) estimates; its trust
+        must be Threshold or Never.
       n_verify: scalar or per-candidate verifications-per-period k
         (arXiv:1310.8486); 0 disables the verification cadence.
       verify_cost: scalar or per-candidate verification duration V.

@@ -10,18 +10,28 @@ results back.
 
 The host loop (``_run_chunk``) calls :func:`lane_loop` with at most
 ``_LAUNCH_CAP`` iterations a call and reads back one stop flag after
-each call, until every lane finished or one overflowed: on the card each
-call is one launch of the lane-loop kernel, which keeps a lane's whole
-state in registers for all its iterations; on the CPU each call runs the
-plain eager loop.
+each call, until no lane can run on: on the card each call is one launch
+of the lane-loop kernel, which keeps a lane's whole state in registers for
+all its iterations; on the CPU each call runs the plain eager loop.
+
+Adaptive lanes keep the online estimator's counters inside the loop; a
+lane whose gate and hysteresis prefilter fires stops after its pop, and
+the host re-plans it through :func:`repro_torch.predictors.maybe_replan`
+(``_replan``, one round trip for all the lanes stopped in a call, each in
+lane order, as ``batch_jax.py::_host_replan`` does) before the next call
+resumes it at its event arrivals.
+
+A chunk runs with ``_DEF_SLOTS`` deferred-fault slots (the kernel's
+register route).  The lanes that overflow them are rerun from their
+initial state with 16 slots, then 32, and so on until none overflows (the
+wide route, its slots in the chunk's rows), and their results replace
+the overflowed ones: the pop takes the earliest (date, sequence) wherever
+a slot sits, so the bits are those of the numpy engine's growing slots.
 
 Lane randomness (FixedProbability trust draws, in-window fault offsets) is
 pre-drawn per lane on the host with numpy (``_draw_tables``), exactly as
 the JAX engine does, and consumed at the scalar engine's draw sites.
-
-Adaptive lanes (the host re-planning round trip) and multi-card sharding
-are not part of this engine yet: adaptive lanes raise
-``NotImplementedError``.
+Multi-card sharding is not part of this engine yet.
 """
 
 from __future__ import annotations
@@ -39,14 +49,20 @@ from ..kernels.event_step import (F_NOW, F_PERIOD, F_PHEND, F_TARGET,
                                   F_VREM, F_VWP, F_WINEND, F_WINREM,
                                   F_WPP, F_WREM, F_WWP, I_KEEP, I_NCKPT,
                                   I_NDEEP, I_NPROC, I_NROLL, I_NV, I_NVERIF,
-                                  I_PHASE, N_F, N_I, event_step)
+                                  I_PHASE, event_step)
 from ..kernels.lane_loop import (_BIG_SEQ, _DEF_SLOTS, _PC_POP,
-                                 _TRUST_FIXED_Q, COUNTS, LF_DEF, LF_TPARAM,
-                                 LF_WINDOW, LI_COUNTS, LI_DEFSEQ, LI_KIND,
-                                 LI_NEXT_SEQ, LI_OVERFLOW, LI_PC, LI_WITHIN,
-                                 LQ_ITERS, LQ_NEV, LQ_TR, N_LF, N_LI, N_LQ,
+                                 _TRUST_FIXED_Q, _TRUST_NEVER,
+                                 _TRUST_THRESHOLD, COUNTS, FLAG_REPLAN,
+                                 FLAG_RUN, LF_DEC, LF_DEF, LF_GN, LF_GS,
+                                 LF_LASTF, LF_MINF, LF_MINP, LF_NFP, LF_NTP,
+                                 LF_NUF, LF_PMU, LF_PP, LF_PR, LF_TOL,
+                                 LF_TPARAM, LF_WINDOW, LI_ACT, LI_COUNTS,
+                                 LI_DEFSEQ, LI_ESTMU, LI_KIND, LI_NEXT_SEQ,
+                                 LI_NREPLANS, LI_OVERFLOW, LI_PC, LI_RESUME,
+                                 LI_WITHIN, LQ_ITERS, LQ_NEV, LQ_TR, N_LQ,
                                  LaneBank, Lanes, lane_loop)
 from ..obs.metrics import get_registry
+from ..predictors.estimator import maybe_replan
 from .simulator import _WORK
 from .traces import FALSE_PRED, FAULT_PRED
 from .waste import Platform
@@ -96,16 +112,60 @@ def _draw_tables(bank, lane_trace: np.ndarray, lane_kind: np.ndarray,
     return tab
 
 
-def _run_chunk(loop, lanes: Lanes, g: LaneBank, cap: int) -> int:
+def _replan(lanes: Lanes, cfgs: Sequence, platform: Platform,
+            cp: float) -> int:
+    """Re-plan every lane stopped for it (``LI_RESUME``), in lane order, as
+    ``batch_jax.py::_host_replan`` does, and write the new plans into the
+    chunk; returns the number of lanes re-planned."""
+    f, i = lanes.f, lanes.i
+    fire = torch.nonzero(i[LI_RESUME] != 0).flatten()
+    rows = (LF_NTP, LF_NFP, LF_NUF, LF_GS, LF_GN, LF_PR, LF_PP, LF_PMU,
+            F_PERIOD, LF_TPARAM)
+    ntp, nfp, nuf, gs, gn, pr, pp, pmu, period, tparam = (
+        f[list(rows)][:, fire].cpu().numpy())
+    n_replans = i[LI_NREPLANS][fire].cpu().numpy()
+    done = 0
+    for j, lane in enumerate(fire.cpu().numpy()):
+        cfg = cfgs[lane]
+        mu_hat = None
+        if cfg.estimate_mu and gn[j] > 0.0:
+            mu_hat = float(gs[j]) / float(gn[j])
+        plan = maybe_replan(cfg, platform, cp, float(ntp[j]), float(nfp[j]),
+                            float(nuf[j]), float(pr[j]), float(pp[j]),
+                            mu_hat=mu_hat, planned_mu=float(pmu[j]))
+        if plan is None:     # the prefilter is maybe_replan's own test
+            continue
+        pr[j], pp[j], period[j], tparam[j] = plan
+        if mu_hat is not None:
+            pmu[j] = mu_hat
+        n_replans[j] += 1
+        done += 1
+    new = torch.from_numpy(np.stack([pr, pp, pmu, period, tparam]))
+    for row, values in zip((LF_PR, LF_PP, LF_PMU, F_PERIOD, LF_TPARAM),
+                           new.to(f.device)):
+        f[row, fire] = values
+    i[LI_NREPLANS, fire] = torch.from_numpy(n_replans).to(i.device)
+    return done
+
+
+def _run_chunk(loop, lanes: Lanes, g: LaneBank, cap: int,
+               replan=None) -> int:
     """The host loop: calls of ``loop`` (:func:`lane_loop` or its plain
     version) of at most ``cap`` iterations, one stop flag read back after
-    each, until every lane finished or one overflowed.  Returns the
+    each, until no lane can run on.  When lanes stopped for a re-plan,
+    ``replan(lanes)`` re-plans them before the next call.  Returns the
     number of calls."""
+    reg = get_registry()
     calls = 0
     while True:
         flag = int(loop(lanes, g, cap=cap))
         calls += 1
-        if flag & 2 or not flag & 1:
+        if flag & FLAG_REPLAN:
+            t0 = time.perf_counter()
+            reg.count("engine.replans", replan(lanes))
+            reg.count("torch.replan_rounds")
+            reg.add_time("torch.replan_s", time.perf_counter() - t0)
+        elif not flag & FLAG_RUN:
             return calls
 
 
@@ -130,24 +190,21 @@ def run_lanes_torch(bank, platform: Platform, time_base: float,
     (``None``: all); ``device`` is where the lanes run (``None``: CUDA).
     """
     dev = resolve_device(device)
-    if lane_adaptive is not None and any(a is not None
-                                         for a in lane_adaptive):
-        raise NotImplementedError(
-            "adaptive lanes are not ported yet: see ROADMAP.md, Queue A "
-            "item 1 (adaptive lanes)")
     if np.any(lane_period < platform.c):
         raise ValueError(f"period below checkpoint {platform.c}")
 
     L = int(lane_trace.size)
     c, d, r = platform.c, platform.d, platform.r
     lane_period = np.asarray(lane_period, dtype=np.float64)
-    lane_kind = np.asarray(lane_kind, dtype=np.int32)
-    lane_param = np.asarray(lane_param, dtype=np.float64)
+    lane_kind = np.asarray(lane_kind, dtype=np.int32).copy()
+    lane_param = np.asarray(lane_param, dtype=np.float64).copy()
     lane_window = np.asarray(lane_window, dtype=np.float64)
     if lane_wmode is None:
         lane_wmode = np.zeros(L, dtype=np.int8)
     if lane_wperiod is None:
         lane_wperiod = np.zeros(L, dtype=np.float64)
+    if lane_adaptive is None:
+        lane_adaptive = [None] * L
     if lane_nverify is None:
         lane_nverify = np.zeros(L, dtype=np.int32)
     if lane_vcost is None:
@@ -171,6 +228,34 @@ def run_lanes_torch(bank, platform: Platform, time_base: float,
                          f"between in-window checkpoints")
     lane_wwp = np.where(within, lane_wperiod - cp, np.inf)
 
+    # Adaptive lanes (the JAX engine's setup, batch_jax.py:192-229): the
+    # plan is lane state, and Never-trust adaptive lanes become
+    # Threshold(+inf) so that a re-plan only moves the parameter.
+    ad_act = np.array([a is not None for a in lane_adaptive], dtype=bool)
+    has_adaptive = bool(ad_act.any())
+    ad_estmu = np.array([bool(a is not None and a.estimate_mu)
+                         for a in lane_adaptive], dtype=bool)
+    if has_adaptive:
+        if np.any(ad_act & ~np.isin(lane_kind, (_TRUST_NEVER,
+                                                _TRUST_THRESHOLD))):
+            raise ValueError(
+                "adaptive re-planning requires a Threshold or Never trust "
+                "policy (the plan sets the threshold)")
+        never = ad_act & (lane_kind == _TRUST_NEVER)
+        lane_kind[never] = _TRUST_THRESHOLD
+        lane_param[never] = np.inf
+
+        def per_lane(attr: str, idle: float) -> np.ndarray:
+            return np.array([idle if a is None else float(getattr(a, attr))
+                             for a in lane_adaptive], dtype=np.float64)
+
+        ad_rows = {LF_DEC: per_lane("decay", 1.0),
+                   LF_MINP: per_lane("min_preds", np.inf),
+                   LF_MINF: per_lane("min_faults", np.inf),
+                   LF_TOL: per_lane("tol", 0.0),
+                   LF_PR: per_lane("prior_recall", 0.0),
+                   LF_PP: per_lane("prior_precision", 0.0)}
+
     reg = get_registry()
     t0 = time.perf_counter()
     tab = _draw_tables(bank, lane_trace, lane_kind, lane_window, lane_seed)
@@ -185,21 +270,21 @@ def run_lanes_torch(bank, platform: Platform, time_base: float,
                  kinds=up(bank.kinds.astype(np.int32)),
                  wins=up(bank.windows if bank.windows is not None
                          else np.full_like(bank.times, -1.0)),
-                 slots=torch.arange(_DEF_SLOTS, device=dev),
                  zero=torch.zeros((), dtype=torch.float64, device=dev),
                  c=c, cp=cp, d=d, r=r, time_base=time_base)
     reg.add_time("torch.upload_s", time.perf_counter() - t0)
     CL = L if (chunk is None or chunk <= 0) else min(int(chunk), L)
     CL = max(CL, 1)
 
-    def init_chunk(sl: slice) -> Lanes:
-        """A chunk's state at the start (rows not set here start at 0)."""
-        n = sl.stop - sl.start
-        period = lane_period[sl]
+    def init_chunk(idx: np.ndarray, slots: int) -> Lanes:
+        """The state at the start of lanes ``idx`` with ``slots``
+        deferred-fault slots (rows not set here start at 0)."""
+        n = idx.size
+        period = lane_period[idx]
         wpp0 = period - c
-        nv = lane_nverify[sl]
+        nv = lane_nverify[idx]
         vwp0 = np.where(nv >= 1, wpp0 / np.maximum(nv, 1), np.inf)
-        f = np.zeros((N_LF, n), np.float64)
+        f = np.zeros((LF_DEF + slots, n), np.float64)
         f[F_PHEND] = np.inf
         f[F_WPP] = wpp0
         f[F_WREM] = np.minimum(wpp0, time_base)
@@ -207,55 +292,72 @@ def run_lanes_torch(bank, platform: Platform, time_base: float,
         f[F_WINREM] = np.inf
         f[F_TARGET] = -np.inf
         f[F_PERIOD] = period
-        f[F_WWP] = lane_wwp[sl]
+        f[F_WWP] = lane_wwp[idx]
         f[F_VWP] = vwp0
         f[F_VREM] = vwp0
-        f[F_VCOST] = lane_vcost[sl]
-        f[LF_TPARAM] = lane_param[sl]
-        f[LF_WINDOW] = lane_window[sl]
+        f[F_VCOST] = lane_vcost[idx]
+        f[LF_TPARAM] = lane_param[idx]
+        f[LF_WINDOW] = lane_window[idx]
+        f[LF_LASTF] = -np.inf
+        f[LF_PMU] = platform.mu
+        if has_adaptive:
+            for row, values in ad_rows.items():
+                f[row] = values[idx]
         f[LF_DEF:] = np.inf
-        i = np.zeros((N_LI, n), np.int32)
+        i = np.zeros((LI_DEFSEQ + slots, n), np.int32)
         i[I_PHASE] = _WORK
         i[I_NV] = nv
-        i[I_KEEP] = lane_keep[sl]
+        i[I_KEEP] = lane_keep[idx]
         i[LI_PC] = _PC_POP
-        i[LI_NEXT_SEQ] = n_ev[sl]
-        i[LI_KIND] = lane_kind[sl]
-        i[LI_WITHIN] = within[sl]
+        i[LI_NEXT_SEQ] = n_ev[idx]
+        i[LI_KIND] = lane_kind[idx]
+        i[LI_WITHIN] = within[idx]
+        i[LI_ACT] = ad_act[idx]
+        i[LI_ESTMU] = ad_estmu[idx]
         i[LI_DEFSEQ:] = _BIG_SEQ
         q = np.zeros((N_LQ, n), np.int64)
-        q[LQ_TR] = lane_trace[sl]
-        q[LQ_NEV] = n_ev[sl]
-        return Lanes(up(f), up(i), up(q), up(tab[sl]))
+        q[LQ_TR] = lane_trace[idx]
+        q[LQ_NEV] = n_ev[idx]
+        return Lanes(up(f), up(i), up(q), up(tab[idx]),
+                     adaptive=bool(ad_act[idx].any()))
 
-    fs_all = np.zeros((N_F, L), np.float64)
-    is_all = np.zeros((N_I, L), np.int32)
-    counts = {key: np.zeros(L, np.int64) for key in COUNTS}
-    launches0 = lane_loop.launches, event_step.launches
-    wall0 = time.perf_counter()
-    for lo in range(0, L, CL):
-        sl = slice(lo, min(lo + CL, L))
+    def run(idx: np.ndarray, slots: int) -> tuple[np.ndarray, ...]:
+        """Run lanes ``idx`` to their end; their f, i, q rows read back."""
         t0 = time.perf_counter()
-        lanes = init_chunk(sl)
+        lanes = init_chunk(idx, slots)
         t1 = time.perf_counter()
-        calls = _run_chunk(lane_loop, lanes, g, _LAUNCH_CAP)
+        cfgs = [lane_adaptive[j] for j in idx]
+        calls = _run_chunk(lane_loop, lanes, g, _LAUNCH_CAP,
+                           lambda ln: _replan(ln, cfgs, platform, cp))
         t2 = time.perf_counter()
-        f, i, q = (t.cpu().numpy() for t in (lanes.f, lanes.i, lanes.q))
-        fs_all[:, sl], is_all[:, sl] = f[:N_F], i[:N_I]
-        for n, key in enumerate(COUNTS):
-            counts[key][sl] = i[LI_COUNTS + n]
+        out = tuple(t.cpu().numpy() for t in (lanes.f, lanes.i, lanes.q))
         reg.add_time("torch.upload_s", t1 - t0)
         reg.add_time("torch.run_s", t2 - t1)
         reg.add_time("torch.readback_s", time.perf_counter() - t2)
-        reg.count("torch.chunks")
         reg.count("torch.loop_calls", calls)
+        return out
+
+    # Each lane's rows before its slots, at its end.
+    keep_f = np.zeros((LF_DEF, L), np.float64)
+    keep_i = np.zeros((LI_DEFSEQ, L), np.int32)
+    launches0 = lane_loop.launches, event_step.launches
+    wall0 = time.perf_counter()
+    for lo in range(0, L, CL):
+        idx = np.arange(lo, min(lo + CL, L))
+        f, i, q = run(idx, _DEF_SLOTS)
+        reg.count("torch.chunks")
         reg.count("torch.iterations", int(q[LQ_ITERS].max()))
-        if i[LI_OVERFLOW].any():
+        keep_f[:, idx], keep_i[:, idx] = f[:LF_DEF], i[:LI_DEFSEQ]
+        over = idx[i[LI_OVERFLOW] != 0]
+        if over.size:
             reg.count("engine.deferred_overflows")
-            raise RuntimeError(
-                f"deferred-fault capacity ({_DEF_SLOTS} slots) exceeded in "
-                f"the torch backend; rerun with the JAX package's "
-                f"backend='numpy'")
+        slots = _DEF_SLOTS
+        while over.size:
+            # The overflowed lanes again from their start, twice the slots.
+            slots *= 2
+            f, i, _ = run(over, slots)
+            keep_f[:, over], keep_i[:, over] = f[:LF_DEF], i[:LI_DEFSEQ]
+            over = over[i[LI_OVERFLOW] != 0]
     wall = time.perf_counter() - wall0
     reg.count("kernels.lane_loop.launches", lane_loop.launches - launches0[0])
     reg.count("kernels.event_step.launches",
@@ -264,34 +366,41 @@ def run_lanes_torch(bank, platform: Platform, time_base: float,
         reg.gauge("torch.lanes_per_s", L / wall)
 
     def icount(row: int) -> np.ndarray:
-        return is_all[row].astype(np.int64)
+        return keep_i[row].astype(np.int64)
 
-    no_est = np.full(L, -1.0)
+    def frow(row: int) -> np.ndarray:
+        return keep_f[row].copy()
+
+    # Final-plan and estimator diagnostics (batch_jax.py:754-793).
+    ntp, nfp, nuf, gs, gn = (keep_f[row] for row in (LF_NTP, LF_NFP,
+                                                       LF_NUF, LF_GS, LF_GN))
+    est = {key: np.full(L, -1.0) for key in ("recall", "precision", "mu")}
+    denom_f, denom_p = ntp + nuf, ntp + nfp
+    np.divide(ntp, denom_f, out=est["recall"], where=ad_act & (denom_f > 0))
+    np.divide(ntp, denom_p, out=est["precision"],
+              where=ad_act & (denom_p > 0))
+    np.divide(gs, gn, out=est["mu"], where=ad_estmu & (gn > 0))
     return {
-        "makespan": fs_all[F_NOW].copy(),
-        "n_faults": counts["n_faults"],
-        "n_faults_hit": counts["n_faults_hit"],
-        "n_predictions": counts["n_predictions"],
-        "n_trusted": counts["n_trusted"],
-        "n_trusted_true": counts["n_trusted_true"],
-        "n_ignored": counts["n_ignored"],
+        "makespan": frow(F_NOW),
+        **{key: icount(LI_COUNTS + n) for n, key in enumerate(COUNTS)
+           if key != "n_silent"},
         "n_periodic_ckpts": icount(I_NCKPT),
         "n_proactive_ckpts": icount(I_NPROC),
         "n_rollbacks": icount(I_NROLL),
-        "time_ckpt": fs_all[F_TCKPT].copy(),
-        "time_prockpt": fs_all[F_TPROC].copy(),
-        "time_down": fs_all[F_TDOWN].copy(),
-        "time_lost": fs_all[F_TLOST].copy(),
-        "time_downtime": fs_all[F_TDOWNT].copy(),
-        "time_recovery": fs_all[F_TRECOV].copy(),
-        "n_silent": counts["n_silent"],
+        "time_ckpt": frow(F_TCKPT),
+        "time_prockpt": frow(F_TPROC),
+        "time_down": frow(F_TDOWN),
+        "time_lost": frow(F_TLOST),
+        "time_downtime": frow(F_TDOWNT),
+        "time_recovery": frow(F_TRECOV),
+        "n_silent": icount(LI_COUNTS + COUNTS.index("n_silent")),
         "n_verifications": icount(I_NVERIF),
         "n_deep_rollbacks": icount(I_NDEEP),
-        "time_verify": fs_all[F_TVERIFY].copy(),
-        "n_replans": np.zeros(L, np.int64),     # no adaptive lanes here
-        "final_period": fs_all[F_PERIOD].copy(),
-        "final_threshold": no_est.copy(),
-        "est_recall": no_est.copy(),
-        "est_precision": no_est.copy(),
-        "est_mu": no_est.copy(),
+        "time_verify": frow(F_TVERIFY),
+        "n_replans": icount(LI_NREPLANS),
+        "final_period": frow(F_PERIOD),
+        "final_threshold": np.where(ad_act, keep_f[LF_TPARAM], -1.0),
+        "est_recall": est["recall"],
+        "est_precision": est["precision"],
+        "est_mu": est["mu"],
     }

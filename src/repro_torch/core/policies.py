@@ -28,8 +28,8 @@ class Strategy:
     ``window_mode`` / ``window_period`` select the prediction-window action
     policy (arXiv:1302.4558); ``n_verify`` / ``verify_cost`` /
     ``keep_ckpts`` the silent-error verification knobs (arXiv:1310.8486).
-    ``adaptive`` is carried for parity with the JAX package's record; the
-    port's lane engine does not run adaptive lanes yet and raises on them.
+    ``adaptive`` (an :class:`repro_torch.predictors.AdaptiveConfig`) makes
+    the lane re-plan (period, threshold) online.
     """
 
     name: str

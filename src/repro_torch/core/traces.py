@@ -1,14 +1,15 @@
 """Failure / prediction trace generation (paper §5.1).
 
 Produces the three event streams the simulator consumes:
-  * fault times           — renewal process (Exponential, Weibull),
-                            either one platform-level stream scaled to
-                            the platform MTBF mu, or the superposition of
-                            N per-processor streams;
-  * predicted flags       — emitted by a predictor model; the port has the
-                            ``oracle`` (:mod:`repro_torch.predictors`),
-                            which predicts each fault with probability r
-                            (recall);
+  * fault times           — renewal process (Exponential, Weibull, Uniform,
+                            LogNormal, log-based Empirical), either one
+                            platform-level stream scaled to the platform
+                            MTBF mu, or the superposition of N
+                            per-processor streams;
+  * predicted flags       — emitted by a generative predictor model
+                            (:mod:`repro_torch.predictors`); the default
+                            ``oracle`` predicts each fault with
+                            probability r (recall);
   * false-prediction times — also predictor-emitted; the oracle uses a
                             renewal process with mean mu_P/(1-p)
                             = p mu /(r (1-p)).
@@ -30,8 +31,8 @@ each prediction event additionally carries the announced interval length I
 RNG.  ``window=0`` leaves ``windows`` unset, reproducing exact-date traces
 bit-for-bit.
 
-The port's own copy of ``repro/core/traces.py:63-428`` (the per-trace
-path): the same numpy draws in the same order, so a trace made here from
+The port's own copy of ``repro/core/traces.py`` (the per-trace path; the
+batched bank path is ROADMAP A2): the same numpy draws in the same order, so a trace made here from
 a seed is bitwise the JAX package's.  :func:`traces_from_numpy` carries a
 bank made elsewhere across as arrays.
 """
@@ -53,10 +54,14 @@ __all__ = [
     "Distribution",
     "Exponential",
     "Weibull",
+    "UniformDist",
+    "LogNormalDist",
+    "Empirical",
     "renewal_trace",
     "superposed_trace",
     "make_event_trace",
     "traces_from_numpy",
+    "lanl_like_log",
 ]
 
 FAULT_UNPRED = 0
@@ -109,6 +114,56 @@ class Weibull(Distribution):
 
     def rescaled(self, mean: float) -> "Weibull":
         return Weibull(self.shape, mean)
+
+
+@dataclasses.dataclass(frozen=True)
+class UniformDist(Distribution):
+    """Uniform on [0, 2*mean] (used for false-prediction traces, Appendix B)."""
+
+    mean: float
+
+    def sample(self, rng: np.random.Generator, size: int) -> np.ndarray:
+        return rng.uniform(0.0, 2.0 * self.mean, size)
+
+    def rescaled(self, mean: float) -> "UniformDist":
+        return UniformDist(mean)
+
+
+@dataclasses.dataclass(frozen=True)
+class LogNormalDist(Distribution):
+    """LogNormal with given sigma; mu chosen to match the mean (extension)."""
+
+    sigma: float
+    mean: float
+
+    def sample(self, rng: np.random.Generator, size: int) -> np.ndarray:
+        mu = math.log(self.mean) - 0.5 * self.sigma ** 2
+        return rng.lognormal(mu, self.sigma, size)
+
+    def rescaled(self, mean: float) -> "LogNormalDist":
+        return LogNormalDist(self.sigma, mean)
+
+
+@dataclasses.dataclass(frozen=True)
+class Empirical(Distribution):
+    """Empirical distribution over observed availability intervals (paper §5.1,
+    log-based traces).  Sampling = resampling the interval set, which realizes
+    exactly the conditional law P(X >= t | X >= tau) described in the paper.
+    """
+
+    samples: tuple[float, ...]
+
+    @property
+    def mean(self) -> float:  # type: ignore[override]
+        return float(np.mean(self.samples))
+
+    def sample(self, rng: np.random.Generator, size: int) -> np.ndarray:
+        arr = np.asarray(self.samples, dtype=np.float64)
+        return rng.choice(arr, size=size, replace=True)
+
+    def rescaled(self, mean: float) -> "Empirical":
+        cur = self.mean
+        return Empirical(tuple(float(s) * mean / cur for s in self.samples))
 
 
 # ---------------------------------------------------------------------------
@@ -327,3 +382,17 @@ def traces_from_numpy(times: Sequence[np.ndarray], kinds: Sequence[np.ndarray],
                        windows=None if w is None
                        else np.array(w, dtype=np.float64))
             for t, k, h, w in zip(times, kinds, horizons, windows)]
+
+
+def lanl_like_log(rng: np.random.Generator, n_intervals: int = 3010,
+                  mu_ind_days: float = 691.0, shape: float = 0.6) -> Empirical:
+    """Synthesize a LANL-18-like availability-interval log (paper §5.1).
+
+    The real Failure Trace Archive files are not available offline; we generate
+    an interval set once from a Weibull(k=0.6) whose mean matches the published
+    per-processor MTBF, then treat it as an *empirical discrete distribution*
+    exactly the way the paper treats the LANL logs.
+    """
+    base = Weibull(shape, mu_ind_days * 86400.0)
+    samples = np.maximum(base.sample(rng, n_intervals), 60.0)
+    return Empirical(tuple(float(s) for s in samples))

@@ -5,15 +5,19 @@ Implements:
   * Daly's period        T = sqrt(2 (mu + D + R) C) + C          [Daly 2004]
   * RFO period           T = sqrt(2 (mu - (D + R)) C)            [paper Eq. 13]
   * the waste model      WASTE = C/T + (1 - C/T) (D + R + T/2)/mu  [Eq. 12]
+  * the exact Exponential-law optimum via Lambert W              [paper §3 end]
 
 All durations share one unit (seconds by convention).  ``mu`` is the platform
 MTBF; for a platform of N components with individual MTBF mu_ind,
 ``mu = mu_ind / N`` (paper Prop. 2, proved in Appendix A).
 
-The port's own copy of ``repro/core/waste.py:45-145``: the same
-floating-point operations in the same order, so periods planned here are
-bitwise the JAX package's.  The Lambert-W exact optimum waits for a later
-slice.
+The first-order formulas here drop every O((T/mu)^2) term; the exact
+renewal analysis (including the prediction-aware generalization of the
+Lambert-W optimum below) lives in :mod:`repro_torch.core.exact`.
+
+The port's own copy of ``repro/core/waste.py``: the same floating-point
+operations in the same order, so periods planned here are bitwise the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -30,6 +34,10 @@ __all__ = [
     "t_young",
     "t_daly",
     "t_rfo",
+    "lambert_w",
+    "t_exact_exponential",
+    "expected_makespan_first_order",
+    "expected_makespan_exponential",
     "clamp_period",
     "ALPHA_CAP",
 ]
@@ -134,3 +142,70 @@ def clamp_period(t: float, p: Platform, alpha: float = ALPHA_CAP,
     if hi < lo:  # degenerate: platform MTBF too small for the model
         return lo
     return min(max(t, lo), hi)
+
+
+# ---------------------------------------------------------------------------
+# Exact optimum for Exponential faults (Lambert W), paper §3 end
+# ---------------------------------------------------------------------------
+
+def lambert_w(z: float, branch: int = 0, tol: float = 1e-14,
+              max_iter: int = 100) -> float:
+    """Real Lambert W: solves w * exp(w) = z via Halley iteration.
+
+    branch 0 (principal, w >= -1) for z >= -1/e; branch -1 (w <= -1) for
+    -1/e <= z < 0.  No scipy dependency.
+    """
+    if z < -math.exp(-1.0) - 1e-12:
+        raise ValueError(f"lambert_w undefined for z={z} < -1/e")
+    z = max(z, -math.exp(-1.0))
+    if branch == 0:
+        # Initial guess: series near 0, log for large z.
+        w = math.log1p(z) if z > -0.3 else -1.0 + math.sqrt(2.0 * (1.0 + math.e * z))
+        if z > math.e:
+            w = math.log(z) - math.log(math.log(z))
+    elif branch == -1:
+        if z >= 0:
+            raise ValueError("branch -1 requires z in [-1/e, 0)")
+        w = -1.0 - math.sqrt(2.0 * (1.0 + math.e * z))
+        if z > -0.1:
+            w = math.log(-z) - math.log(-math.log(-z))
+    else:
+        raise ValueError(f"unsupported branch {branch}")
+    for _ in range(max_iter):
+        ew = math.exp(w)
+        f = w * ew - z
+        # Halley step.
+        denom = ew * (w + 1.0) - (w + 2.0) * f / (2.0 * w + 2.0) if w != -1.0 else ew
+        step = f / denom
+        w -= step
+        if abs(step) <= tol * (1.0 + abs(w)):
+            break
+    return w
+
+
+def t_exact_exponential(p: Platform) -> float:
+    """Exact optimal period for Exponential faults.
+
+    With TIME_final = (mu + D) e^{R/mu} (e^{T/mu} - 1) TIME_base/(T - C)
+    [paper §3, citing Bougeret et al. SC'11], the optimum is
+        T* = C + mu (1 + W(-e^{-(C/mu + 1)}))
+    with W the principal Lambert branch.
+    """
+    w = lambert_w(-math.exp(-(p.c / p.mu + 1.0)), branch=0)
+    return p.c + p.mu * (1.0 + w)
+
+
+def expected_makespan_exponential(t: float, time_base: float, p: Platform) -> float:
+    """Exact expected makespan under Exponential faults for period T."""
+    if t <= p.c:
+        raise ValueError(f"period T={t} must exceed C={p.c}")
+    n_periods = time_base / (t - p.c)
+    return (p.mu + p.d) * math.exp(p.r / p.mu) * (math.exp(t / p.mu) - 1.0) * n_periods
+
+
+def expected_makespan_first_order(t: float, time_base: float, p: Platform) -> float:
+    """First-order expected makespan: TIME_base / (1 - WASTE) (Eq. 10)."""
+    w = waste(t, p)
+    if w >= 1.0:
+        return math.inf
+    return time_base / (1.0 - w)

@@ -1,10 +1,13 @@
-"""Scenario specs and strategy evaluation of the port."""
+"""Scenario specs, the strategy registry and strategy evaluation of the
+port."""
 
+from .registry import build_strategy, list_strategies, register_strategy
 from .runner import (BestPeriodSearch, best_means, best_period_grid,
                      candidate_makespans, evaluate_strategies,
                      expand_candidates)
-from .spec import DistributionSpec, ScenarioSpec
+from .spec import DistributionSpec, PredictorSpec, ScenarioSpec
 
-__all__ = ["BestPeriodSearch", "DistributionSpec", "ScenarioSpec",
-           "best_means", "best_period_grid", "candidate_makespans",
-           "evaluate_strategies", "expand_candidates"]
+__all__ = ["BestPeriodSearch", "DistributionSpec", "PredictorSpec",
+           "ScenarioSpec", "best_means", "best_period_grid",
+           "build_strategy", "candidate_makespans", "evaluate_strategies",
+           "expand_candidates", "list_strategies", "register_strategy"]

@@ -2,11 +2,11 @@
 
 The port's counterpart of the JAX package's ``experiments/runner.py``
 (``evaluate_strategies``, ``BestPeriodSearch``, ``best_period_grid``) for
-strategies the lane engine runs: constant periods and the four standard
-trust policies.  ``evaluate_strategies`` is three steps, each public:
-``expand_candidates`` (strategies to deduplicated lane candidates),
-``candidate_makespans`` (one lane pass, per-trace makespans) and
-``best_means`` (trace-order means, the best grid point per search).
+strategies the lane engine runs: constant periods, the four standard
+trust policies and adaptive re-planning.  ``evaluate_strategies`` is three
+steps, each public: ``expand_candidates`` (strategies to deduplicated lane
+candidates), ``candidate_makespans`` (one lane pass, per-trace makespans)
+and ``best_means`` (trace-order means, the best grid point per search).
 
 Determinism contract (as in the reference): each (strategy, trace ``i``)
 pair draws from ``np.random.default_rng(seed + 7919 * i)`` and makespans
@@ -72,10 +72,12 @@ def _trust_key(trust: TrustPolicy) -> tuple:
 
 
 def _candidate_key(strategy: Strategy) -> tuple:
+    adaptive = strategy.adaptive
     return (strategy.period, _trust_key(strategy.trust),
             strategy.inexact_window, strategy.window_mode,
-            strategy.window_period, strategy.n_verify,
-            strategy.verify_cost, strategy.keep_ckpts)
+            strategy.window_period,
+            None if adaptive is None else tuple(adaptive.key()),
+            strategy.n_verify, strategy.verify_cost, strategy.keep_ckpts)
 
 
 def _check_batchable(strategy: Strategy) -> None:
@@ -85,10 +87,6 @@ def _check_batchable(strategy: Strategy) -> None:
         raise ValueError(
             f"the torch lane engine cannot run strategy {strategy.name!r} "
             f"(dynamic period or unsupported trust policy)")
-    if strategy.adaptive is not None:
-        raise NotImplementedError(
-            "adaptive lanes are not ported yet: see ROADMAP.md, Queue A "
-            "item 1 (adaptive lanes)")
 
 
 def _expand(item: Strategy | BestPeriodSearch, platform: Platform
@@ -156,6 +154,7 @@ def candidate_makespans(
             windows=[s.inexact_window for s in lane],
             window_modes=[s.window_mode for s in lane],
             window_periods=[s.window_period for s in lane],
+            adaptives=[s.adaptive for s in lane],
             n_verifies=[s.n_verify for s in lane],
             verify_costs=[s.verify_cost for s in lane],
             keep_ckpts=[s.keep_ckpts for s in lane],

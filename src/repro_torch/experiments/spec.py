@@ -1,16 +1,15 @@
 """Scenario specifications: one simulation cell of the paper's study.
 
 The port's own copy of the JAX package's ``experiments/spec.py``
-(:class:`DistributionSpec`, and :class:`ScenarioSpec` with the fields of
-the golden cells and their defaults, ``repro/experiments/spec.py:229-300``).
-Traces come from the per-trace path: trace ``i`` draws from
+(:class:`DistributionSpec`, :class:`PredictorSpec`, and
+:class:`ScenarioSpec` with the fields of the golden cells and their
+defaults).  Traces come from the per-trace path: trace ``i`` draws from
 ``default_rng(seed + 1009 * i)``, so a bank made here is bitwise the JAX
-package's.
+package's.  The distributions are the reference's registered six
+(``repro/experiments/registry.py:145-170``).
 
-Not ported yet, and rejected when asked for: generative predictor models
-other than the oracle (``predictor``), the exact-model analysis
-(``model_order="exact"``), distributions other than Exponential and
-Weibull, and the batched bank path.
+Not ported yet: the batched bank path (ROADMAP A2) and ``StrategySpec``,
+``SweepSpec`` and ``ExperimentSpec`` (A4).
 """
 
 from __future__ import annotations
@@ -21,12 +20,13 @@ from typing import Any, Mapping
 import numpy as np
 
 from ..core.prediction import PredictedPlatform, Predictor
-from ..core.traces import (Distribution, EventTrace, Exponential, Weibull,
-                           make_event_trace)
+from ..core.traces import (Distribution, Empirical, EventTrace, Exponential,
+                           LogNormalDist, UniformDist, Weibull,
+                           lanl_like_log, make_event_trace)
 from ..core.waste import Platform
 
 __all__ = ["SECONDS_PER_DAY", "MU_IND_SYNTH", "DistributionSpec",
-           "ScenarioSpec"]
+           "PredictorSpec", "ScenarioSpec"]
 
 SECONDS_PER_DAY = 86400.0
 MU_IND_SYNTH = 125.0 * 365.0 * 86400.0  # paper §5.1: 125-year individual MTBF
@@ -34,6 +34,14 @@ MU_IND_SYNTH = 125.0 * 365.0 * 86400.0  # paper §5.1: 125-year individual MTBF
 _DISTRIBUTIONS = {
     "exponential": lambda mean=1.0: Exponential(mean),
     "weibull": lambda shape=0.7, mean=1.0: Weibull(shape, mean),
+    "uniform": lambda mean=1.0: UniformDist(mean),
+    "lognormal": lambda sigma=1.0, mean=1.0: LogNormalDist(sigma, mean),
+    "empirical": lambda samples=(): Empirical(tuple(float(s)
+                                                    for s in samples)),
+    # LANL-like empirical availability-interval log (paper §5.3 mechanism).
+    "lanl": lambda n_intervals=3010, mu_ind_days=691.0, shape=0.6, seed=42:
+        lanl_like_log(np.random.default_rng(seed), n_intervals=n_intervals,
+                      mu_ind_days=mu_ind_days, shape=shape),
 }
 
 
@@ -49,9 +57,8 @@ class DistributionSpec:
         try:
             factory = _DISTRIBUTIONS[self.name]
         except KeyError:
-            raise NotImplementedError(
-                f"distribution {self.name!r} is not ported (have "
-                f"{sorted(_DISTRIBUTIONS)})") from None
+            raise KeyError(f"unknown distribution {self.name!r}; "
+                           f"registered: {sorted(_DISTRIBUTIONS)}") from None
         return factory(**self.params)
 
     @classmethod
@@ -68,6 +75,41 @@ def _coerce_dist(value: Any) -> DistributionSpec | None:
 
 
 @dataclasses.dataclass(frozen=True)
+class PredictorSpec:
+    """A generative predictor model by registry name, e.g.
+    ``PredictorSpec("drifting", {"precision_end": 0.3})``.
+
+    The model is built at the scenario's nominal (recall, precision) —
+    params carry only the model-specific knobs.  ``None`` on the scenario
+    means the ``oracle`` stamping.
+    """
+
+    name: str
+    params: dict = dataclasses.field(default_factory=dict)
+
+    def build(self, recall: float, precision: float):
+        from ..predictors import build_predictor
+        return build_predictor(self.name, recall, precision, **self.params)
+
+    def to_dict(self) -> dict:
+        return {"name": self.name, "params": dict(self.params)}
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any] | str) -> "PredictorSpec":
+        if isinstance(d, str):
+            return cls(name=d)
+        return cls(name=d["name"], params=dict(d.get("params", {})))
+
+
+def _coerce_pred(value: Any) -> PredictorSpec | None:
+    if value is None or isinstance(value, PredictorSpec):
+        return value
+    if isinstance(value, (Mapping, str)):
+        return PredictorSpec.from_dict(value)
+    raise TypeError(f"cannot coerce {value!r} into a PredictorSpec")
+
+
+@dataclasses.dataclass(frozen=True)
 class ScenarioSpec:
     """One simulation cell (paper §5.1 defaults).
 
@@ -79,7 +121,11 @@ class ScenarioSpec:
     the trace.  ``window`` stamps every prediction with the window length
     I (arXiv:1302.4558); ``silent_mu_ind`` adds a silent-corruption stream
     and ``verify_cost`` / ``n_verify`` / ``keep_ckpts`` are the scenario's
-    verification knobs (arXiv:1310.8486).
+    verification knobs (arXiv:1310.8486).  ``predictor`` selects the
+    generative predictor model (``None``: the oracle stamping);
+    ``model_order`` the analysis the order-aware strategies plan with
+    (``"first"``, the paper's first-order model, or ``"exact"``, the
+    exact-Exponential renewal analysis of :mod:`repro_torch.core.exact`).
     """
 
     n: int = 2 ** 16
@@ -88,7 +134,7 @@ class ScenarioSpec:
     recall: float = 0.85
     precision: float = 0.82
     window: float = 0.0
-    predictor: Any = None
+    predictor: PredictorSpec | None = None
     model_order: str = "first"
     silent_mu_ind: float | None = None
     verify_cost: float = 0.0
@@ -112,14 +158,10 @@ class ScenarioSpec:
         object.__setattr__(self, "dist", _coerce_dist(self.dist))
         object.__setattr__(self, "false_pred_dist",
                            _coerce_dist(self.false_pred_dist))
-        if self.predictor is not None:
-            raise NotImplementedError(
-                "predictor models other than the oracle are not ported; "
-                "see ROADMAP.md, Queue A (non-oracle predictors)")
-        if self.model_order != "first":
-            raise NotImplementedError(
-                f"model_order={self.model_order!r} is not ported; the port "
-                f"plans with the first-order model")
+        object.__setattr__(self, "predictor", _coerce_pred(self.predictor))
+        if self.model_order not in ("first", "exact"):
+            raise ValueError(f"model_order must be 'first' or 'exact', "
+                             f"got {self.model_order!r}")
         if self.silent_mu_ind is not None and not self.silent_mu_ind > 0:
             raise ValueError(f"silent_mu_ind must be positive or None, "
                              f"got {self.silent_mu_ind}")
@@ -173,6 +215,12 @@ class ScenarioSpec:
 
     # -- trace generation ----------------------------------------------------
 
+    def _predictor_model(self):
+        """The built generative predictor model, or None (oracle path)."""
+        if self.predictor is None:
+            return None
+        return self.predictor.build(self.recall, self.precision)
+
     def _shift(self, tr: EventTrace) -> EventTrace:
         # Shift so the job starts ``start`` seconds into the trace (avoids
         # the synchronized-processor-start artifact, paper §5.1).
@@ -193,7 +241,8 @@ class ScenarioSpec:
         tr = make_event_trace(
             self.dist.build(), self.mu, self.recall, self.precision,
             self.horizon, rng, false_pred_dist=fdist, n_processors=n_streams,
-            window=self.window, silent_mu=self.silent_mu)
+            window=self.window, predictor_model=self._predictor_model(),
+            silent_mu=self.silent_mu)
         return self._shift(tr)
 
     def make_traces(self, n_traces: int | None = None,

@@ -11,14 +11,21 @@
 // event_step_pallas, event_step.py:275, which XLA fuses on the TPU).  Its
 // plain version is repro_torch/kernels/lane_loop.py::lane_loop_ref, the
 // eager lockstep loop; every expression below mirrors that module's _pop,
-// _push, _arrive and _body statement for statement, and both kernels call
-// the same advance() (event_step_ref's _advance_math).
+// _observe, _push, _prefilter, _arrive and _body statement for statement,
+// and both kernels call the same advance() (event_step_ref's
+// _advance_math).  Four instantiations: the deferred-fault slots in
+// registers (8, the study's route) or in the chunk's rows (any K, the wide
+// route that reruns the lanes that overflowed 8), each for static lanes or
+// for adaptive lanes, which keep the online estimator's counters at the pop
+// (batch_jax.py:308-346) and stop after the pop when their re-plan
+// prefilter fires (batch_jax.py:401-416); the host re-plans them and the
+// next launch resumes them at their arrivals.
 //
 // Layout: fs is (23, L) float64 and is_ is (12, L) int32, row-major, rows
-// in the F_* / I_* order; the lane loop's F (36, L), I (33, L) and Q (5, L)
-// extend them (lane_loop.py), and tab is (L, width).  One thread owns one
-// lane (a column): neighbouring threads read neighbouring addresses of each
-// row, so every state load and store coalesces.
+// in the F_* / I_* order; the lane loop's F (41 + K, L), I (29 + K, L) and
+// Q (5, L) extend them (lane_loop.py), and tab is (L, width).  One thread
+// owns one lane (a column): neighbouring threads read neighbouring
+// addresses of each row, so every state load and store coalesces.
 //
 // Bound.  event_step_kernel: 464 bytes per lane per launch (232 read, 232
 // written), whatever `passes` is; per pass about 30 float64 adds and at
@@ -31,17 +38,23 @@
 // design keeps a lane's whole state in registers (the 8 deferred-fault slots
 // in fully unrolled loops, never an indexed local array), runs every
 // iteration of the lane in one launch (the host relaunches only past a
-// per-launch cap), and launches blocks of 32 threads so that a few thousand
-// lanes spread over all 132 SMs.  There is no tensor-core work.
+// per-launch cap, or for adaptive lanes after a re-plan round), and
+// launches blocks of 32 threads so that a few thousand lanes spread over
+// all 132 SMs.  The adaptive instantiation is separate so that the
+// estimator's thirteen float64 values add no registers to the study's
+// lanes.  There is no tensor-core work.
 //
 // Bitwise contract with the numpy engine:
 //   * built with --fmad=false (no multiply-add contraction: the in-window
-//     fault date t + (w*u + 0) rounds the product first, as the plain
-//     version's separate kernels do; the divide is IEEE div.rn.f64);
+//     fault date t + (w*u + 0) and the estimator's decays x*dec + 0 round
+//     the product first, as the plain version's separate kernels do; the
+//     divide is IEEE div.rn.f64);
 //   * min/max propagate NaN like jnp.minimum / torch.minimum / amin;
 //   * every `x + (cond ? c : 0.0)` is kept as written: x + 0.0 is not x
 //     when x is -0.0;
-//   * ties take the first index, as torch's argmin / argmax do.
+//   * ties take the first index, as torch's argmin / argmax do; the pop
+//     takes the earliest (date, sequence) wherever its slot sits, so the
+//     bits do not depend on K.
 
 #include <cuda_runtime.h>
 
@@ -285,13 +298,20 @@ constexpr int DEF_SLOTS = 8;
 constexpr int BIG_SEQ = 2147483647;
 constexpr int ADV_PASSES = 4;
 constexpr int LOOP_THREADS = 32;
+// The precision estimate's floor (predictors/estimator.py's P_HAT_MIN).
+constexpr double P_HAT_MIN = 1e-3;
 
 // Rows of the lane loop's matrices after the F_* / I_* rows (lane_loop.py).
+// The deferred-fault slots come last: K rows from LF_DEF and from LI_DEFSEQ.
 enum LFRow { LF_PRED_T = 23, LF_PRED_FD = 24, LF_PRED_WIN = 25,
-             LF_TPARAM = 26, LF_WINDOW = 27, LF_DEF = 28, N_LF = 36 };
+             LF_TPARAM = 26, LF_WINDOW = 27, LF_NTP = 28, LF_NFP = 29,
+             LF_NUF = 30, LF_GS = 31, LF_GN = 32, LF_LASTF = 33, LF_PR = 34,
+             LF_PP = 35, LF_PMU = 36, LF_DEC = 37, LF_MINP = 38,
+             LF_MINF = 39, LF_TOL = 40, LF_DEF = 41 };
 enum LIRow { LI_PC = 12, LI_PRED_TRUE = 13, LI_NEXT_SEQ = 14,
              LI_OVERFLOW = 15, LI_KIND = 16, LI_WITHIN = 17,
-             LI_COUNTS = 18, LI_DEFSEQ = 25, N_LI = 33 };
+             LI_COUNTS = 18, LI_ACT = 25, LI_ESTMU = 26, LI_NREPLANS = 27,
+             LI_RESUME = 28, LI_DEFSEQ = 29 };
 enum LQRow { LQ_TR, LQ_NEV, LQ_CURSOR, LQ_CUR, LQ_ITERS, N_LQ };
 // The event counters, rows LI_COUNTS + c.
 enum Count { C_FAULTS, C_FAULTS_HIT, C_PREDICTIONS, C_TRUSTED,
@@ -299,8 +319,82 @@ enum Count { C_FAULTS, C_FAULTS_HIT, C_PREDICTIONS, C_TRUSTED,
 enum PC { PC_POP, PC_FAULT, PC_PRED, PC_FINAL, PC_SILENT };
 enum Trust { TRUST_NEVER, TRUST_ALWAYS, TRUST_THRESHOLD, TRUST_FIXED_Q };
 enum Kind { FAULT_UNPRED = 0, FAULT_PRED = 1, FALSE_PRED = 2, SILENT = 3 };
+// Bits of the stop flag.
+enum Flag { FLAG_RUN = 1, FLAG_OVERFLOW = 2, FLAG_REPLAN = 4 };
+
+// The register route's deferred-fault slots: DEF_SLOTS of them, every
+// access in a fully unrolled loop, so they stay registers (never an
+// indexed local array).
+struct RegSlots {
+  double t[DEF_SLOTS];
+  int s[DEF_SLOTS];
+
+  __device__ static constexpr int size() { return DEF_SLOTS; }
+  __device__ __forceinline__ double time(int q) const { return t[q]; }
+  __device__ __forceinline__ int seq(int q) const { return s[q]; }
+  // (date, sequence) into slot `slot` where `on`: a select on every slot.
+  __device__ __forceinline__ void put(int slot, bool on, double date,
+                                      int sq) {
+#pragma unroll
+    for (int q = 0; q < DEF_SLOTS; ++q) {
+      const bool hot = (q == slot) && on;
+      t[q] = hot ? date : t[q];
+      s[q] = hot ? sq : s[q];
+    }
+  }
+  __device__ __forceinline__ void load(double* F, int* I, long long lanes,
+                                       long long j, int) {
+#pragma unroll
+    for (int q = 0; q < DEF_SLOTS; ++q) {
+      t[q] = F[(LF_DEF + q) * lanes + j];
+      s[q] = I[(LI_DEFSEQ + q) * lanes + j];
+    }
+  }
+  __device__ __forceinline__ void store(double* F, int* I, long long lanes,
+                                        long long j) const {
+#pragma unroll
+    for (int q = 0; q < DEF_SLOTS; ++q) {
+      F[(LF_DEF + q) * lanes + j] = t[q];
+      I[(LI_DEFSEQ + q) * lanes + j] = s[q];
+    }
+  }
+};
+
+// The wide route's slots: K of them (a runtime count), read and written
+// in place in the chunk's rows.  It runs only the lanes that overflowed
+// the register route, rerun from their start, so its speed does not
+// matter; K is unbounded, as the numpy engine's growing slots are.
+struct RowSlots {
+  double* t;
+  int* s;
+  long long stride;
+  int k;
+
+  __device__ __forceinline__ int size() const { return k; }
+  __device__ __forceinline__ double time(int q) const {
+    return t[q * stride];
+  }
+  __device__ __forceinline__ int seq(int q) const { return s[q * stride]; }
+  __device__ __forceinline__ void put(int slot, bool on, double date,
+                                      int sq) {
+    if (on) {
+      t[slot * stride] = date;
+      s[slot * stride] = sq;
+    }
+  }
+  __device__ __forceinline__ void load(double* F, int* I, long long lanes,
+                                       long long j, int slots) {
+    t = F + LF_DEF * lanes + j;
+    s = I + LI_DEFSEQ * lanes + j;
+    stride = lanes;
+    k = slots;
+  }
+  __device__ __forceinline__ void store(double*, int*, long long,
+                                        long long) const {}
+};
 
 // A lane's pop / arrival state (the plain version's dict `s`).
+template <class Slots>
 struct Lane {
   int pc;
   bool pred_true;
@@ -308,9 +402,16 @@ struct Lane {
   bool overflow;
   long long cursor, cur;
   double pred_t, pred_fd, pred_win;
-  double def_time[DEF_SLOTS];
-  int def_seq[DEF_SLOTS];
+  Slots def;
   int count[N_COUNTS];
+};
+
+// An adaptive lane's estimator: the counters it updates at its pops and
+// the constants of this launch (the plan last made, the gate, the decay).
+struct Est {
+  double ntp, nfp, nuf, gs, gn, lastf;
+  double pr, pp, pmu, dec, minp, minf, tol;
+  bool act, estmu;
 };
 
 // A lane's constants (the plain version's dict `k`) and the bank.
@@ -342,30 +443,31 @@ __device__ __forceinline__ double draw_at(const LaneConst& k, long long col) {
 // _push: deferred-fault insert into the first empty slot.  With no empty
 // slot the lane overflows and slot 0 is written, as argmax of an all-zero
 // row picks 0.
-__device__ __forceinline__ void push_fault(Lane& s, bool push, double date) {
+template <class Slots>
+__device__ __forceinline__ void push_fault(Lane<Slots>& s, bool push,
+                                           double date) {
   bool any_empty = false;
   int slot = 0;
 #pragma unroll
-  for (int q = DEF_SLOTS - 1; q >= 0; --q) {
-    const bool empty = is_inf(s.def_time[q]);
+  for (int q = s.def.size() - 1; q >= 0; --q) {
+    const bool empty = is_inf(s.def.time(q));
     slot = empty ? q : slot;
     any_empty = any_empty || empty;
   }
   s.overflow = s.overflow || (push && !any_empty);
-#pragma unroll
-  for (int q = 0; q < DEF_SLOTS; ++q) {
-    const bool hot = (q == slot) && push;
-    s.def_time[q] = hot ? date : s.def_time[q];
-    s.def_seq[q] = hot ? s.next_seq : s.def_seq[q];
-  }
+  s.def.put(slot, push, date, s.next_seq);
   s.next_seq = push ? s.next_seq + 1 : s.next_seq;
 }
 
-// One iteration of one lane: lane_loop.py's _body (_pop, the fault date
-// and _push, _arrive, ADV_PASSES advances).
-__device__ __forceinline__ void lane_body(double* f, int* st, Lane& s,
-                                          const LaneConst& k, const Bank& b,
-                                          const Consts& kc) {
+// The first half of one iteration of one lane: lane_loop.py's _pop (with
+// _observe for adaptive lanes), the fault date and its _push, and for
+// adaptive lanes the re-plan prefilter (_prefilter).  Returns true when
+// the lane's re-plan fires: the lane then stops before its arrivals.
+template <bool ADAPTIVE, class Slots>
+__device__ __forceinline__ bool pop_push(double* f, const int* st,
+                                         Lane<Slots>& s, Est& e,
+                                         const LaneConst& k, const Bank& b,
+                                         const Consts& kc) {
   const double inf = __longlong_as_double(0x7ff0000000000000LL);
 
   // ---- _pop
@@ -381,15 +483,15 @@ __device__ __forceinline__ void lane_body(double* f, int* st, Lane& s,
   const double t_tr = read ? b.times[at] : inf;
   const int k_tr = read ? b.kinds[at] : -1;
   const double w_ev = read ? b.wins[at] : -1.0;
-  double min_t = s.def_time[0];
+  double min_t = s.def.time(0);
 #pragma unroll
-  for (int q = 1; q < DEF_SLOTS; ++q) min_t = dmin(min_t, s.def_time[q]);
+  for (int q = 1; q < s.def.size(); ++q) min_t = dmin(min_t, s.def.time(q));
   // First minimum of the sequence numbers among the slots at min_t.
   int slot = 0;
-  int best = (s.def_time[0] == min_t) ? s.def_seq[0] : BIG_SEQ;
+  int best = (s.def.time(0) == min_t) ? s.def.seq(0) : BIG_SEQ;
 #pragma unroll
-  for (int q = 1; q < DEF_SLOTS; ++q) {
-    const int v = (s.def_time[q] == min_t) ? s.def_seq[q] : BIG_SEQ;
+  for (int q = 1; q < s.def.size(); ++q) {
+    const int v = (s.def.time(q) == min_t) ? s.def.seq(q) : BIG_SEQ;
     slot = (v < best) ? q : slot;
     best = (v < best) ? v : best;
   }
@@ -401,12 +503,7 @@ __device__ __forceinline__ void lane_body(double* f, int* st, Lane& s,
   const bool take_trace = pop && !none_left && (t_tr <= min_t);
   s.cursor = s.cursor + (take_trace ? 1 : 0);
   const bool take_def = pop && !none_left && !take_trace;
-#pragma unroll
-  for (int q = 0; q < DEF_SLOTS; ++q) {
-    const bool clear = (q == slot) && take_def;
-    s.def_time[q] = clear ? inf : s.def_time[q];
-    s.def_seq[q] = clear ? BIG_SEQ : s.def_seq[q];
-  }
+  s.def.put(slot, take_def, inf, BIG_SEQ);
 
   const bool uf = take_trace && (k_tr == FAULT_UNPRED);
   const bool is_fault = take_def || uf;
@@ -424,6 +521,34 @@ __device__ __forceinline__ void lane_body(double* f, int* st, Lane& s,
   s.count[C_PREDICTIONS] += is_pred ? 1 : 0;
   const bool is_true = is_pred && (k_tr == FAULT_PRED);
   s.count[C_FAULTS] += is_true ? 1 : 0;
+  // The runtime zero of the reference's contraction guards.
+  const double zero = __dsub_rn(now, now);
+
+  // ---- _observe: the estimator's counters, decay-then-increment with
+  // each product rounded before its add.
+  bool site = false;
+  if constexpr (ADAPTIVE) {
+    const bool mu_site = e.act && e.estmu && is_fault;
+    const bool obs = mu_site && (e.lastf > -inf);
+    const double gs_d = __dadd_rn(__dmul_rn(e.gs, e.dec), zero);
+    const double gn_d = __dadd_rn(__dmul_rn(e.gn, e.dec), zero);
+    e.gs = obs ? __dadd_rn(gs_d, __dsub_rn(f_t, e.lastf)) : e.gs;
+    e.gn = obs ? __dadd_rn(gn_d, 1.0) : e.gn;
+    e.lastf = mu_site ? f_t : e.lastf;
+    const bool upd_uf = uf && e.act;
+    const bool upd_p = is_pred && e.act;
+    const bool upd = upd_uf || upd_p;
+    double ntp = upd ? __dadd_rn(__dmul_rn(e.ntp, e.dec), zero) : e.ntp;
+    double nfp = upd ? __dadd_rn(__dmul_rn(e.nfp, e.dec), zero) : e.nfp;
+    double nuf = upd ? __dadd_rn(__dmul_rn(e.nuf, e.dec), zero) : e.nuf;
+    nuf = upd_uf ? __dadd_rn(nuf, 1.0) : nuf;
+    ntp = (upd_p && is_true) ? __dadd_rn(ntp, 1.0) : ntp;
+    nfp = (upd_p && !is_true) ? __dadd_rn(nfp, 1.0) : nfp;
+    e.ntp = ntp;
+    e.nfp = nfp;
+    e.nuf = nuf;
+    site = e.act && (is_pred || uf || (take_def && obs));
+  }
 
   const double w_eff = (w_ev < 0.0) ? k.window : w_ev;
   const bool draw_win = is_true && (w_eff > 0.0);
@@ -442,11 +567,42 @@ __device__ __forceinline__ void lane_body(double* f, int* st, Lane& s,
 
   // ---- _body: the in-window fault date t + (w*u + zero), product rounded
   // first, then its deferred-fault push.
-  const double zero = __dsub_rn(now, now);
   const double off = __dadd_rn(__dmul_rn(w_eff, u), zero);
   const double fd = draw_win ? __dadd_rn(t_tr, off) : t_tr;
   s.pred_fd = honour ? fd : s.pred_fd;
   push_fault(s, ignored && is_true, fd);
+  f[F_TARGET] = target;
+
+  // ---- _prefilter: maybe_replan's gate and hysteresis.  An overflowed
+  // lane is rerun from its start, so it does not stop here.
+  bool fire = false;
+  if constexpr (ADAPTIVE) {
+    const double npred = __dadd_rn(e.ntp, e.nfp);
+    const double nflt = __dadd_rn(e.ntp, e.nuf);
+    const bool gate = (npred >= e.minp) && (nflt >= e.minf);
+    const double r_hat = e.ntp / (gate ? nflt : 1.0);
+    const double p_hat = dmax(e.ntp / (gate ? npred : 1.0), P_HAT_MIN);
+    const bool has_mu = e.estmu && (e.gn > 0.0);
+    const double mu_hat = e.gs / (e.gn > 0.0 ? e.gn : 1.0);
+    const bool moved =
+        (fabs(__dsub_rn(r_hat, e.pr)) > e.tol) ||
+        (fabs(__dsub_rn(p_hat, e.pp)) > e.tol) ||
+        (has_mu && (fabs(__dsub_rn(mu_hat, e.pmu)) > __dmul_rn(e.tol, e.pmu)));
+    fire = site && gate && moved && !s.overflow;
+  }
+  return fire;
+}
+
+// The second half of one iteration of one lane: lane_loop.py's _arrive
+// and ADV_PASSES advances.
+template <class Slots>
+__device__ __forceinline__ void arrive_advance(double* f, int* st,
+                                               Lane<Slots>& s,
+                                               const LaneConst& k,
+                                               const Consts& kc) {
+  const double inf = __longlong_as_double(0x7ff0000000000000LL);
+  const double now = f[F_NOW];
+  double target = f[F_TARGET];
 
   // ---- _arrive
   const bool active = st[I_FIN] == 0;
@@ -459,7 +615,6 @@ __device__ __forceinline__ void lane_body(double* f, int* st, Lane& s,
   double win_rem = f[F_WINREM];
   int n_dirty = st[I_NDIRTY];
   int corrupted = st[I_CORR];
-
   // Fault arrival, with the deep rollback past dirty snapshots.
   const bool arr_f = active && (s.pc == PC_FAULT) && (now >= target);
   const bool deep = n_dirty > 0;
@@ -543,18 +698,35 @@ __device__ __forceinline__ void lane_body(double* f, int* st, Lane& s,
   for (int p = 0; p < ADV_PASSES; ++p) advance(f, st, kc);
 }
 
-// One thread per lane: load the lane's state, run its iterations until it
-// finished, overflowed or ran `cap` of them, write it back once.  The flag
-// collects bit 0 (a lane is unfinished) and bit 1 (a lane overflowed).
+
+template <bool WIDE>
+struct SlotsOf {
+  using type = RegSlots;
+};
+template <>
+struct SlotsOf<true> {
+  using type = RowSlots;
+};
+
+// One thread per lane: load the lane's state, first complete an iteration
+// stopped for a re-plan (its arrivals and advance, counted when it began),
+// then run its iterations until it finished, overflowed, stopped for a
+// re-plan or ran `cap` of them, and write the state back once.  WIDE keeps
+// the deferred-fault slots in the chunk's rows (RowSlots) instead of
+// registers; ADAPTIVE runs the estimator.  The flag collects FLAG_RUN (a
+// lane can run on), FLAG_OVERFLOW and FLAG_REPLAN (a lane awaits a
+// re-plan).
+template <bool WIDE, bool ADAPTIVE>
 __global__ void __launch_bounds__(LOOP_THREADS)
 lane_loop_kernel(double* F, int* I, long long* Q, const double* tab,
                  long long tab_width, Bank b, long long lanes, int cap,
-                 Consts kc, int* flag) {
+                 int slots, Consts kc, int* flag) {
+  using Slots = typename SlotsOf<WIDE>::type;
   const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= lanes) return;
   double f[N_F];
   int st[N_I];
-  Lane s;
+  Lane<Slots> s;
 #pragma unroll
   for (int row = 0; row < N_F; ++row) f[row] = F[row * lanes + j];
 #pragma unroll
@@ -562,11 +734,7 @@ lane_loop_kernel(double* F, int* I, long long* Q, const double* tab,
   s.pred_t = F[LF_PRED_T * lanes + j];
   s.pred_fd = F[LF_PRED_FD * lanes + j];
   s.pred_win = F[LF_PRED_WIN * lanes + j];
-#pragma unroll
-  for (int q = 0; q < DEF_SLOTS; ++q) {
-    s.def_time[q] = F[(LF_DEF + q) * lanes + j];
-    s.def_seq[q] = I[(LI_DEFSEQ + q) * lanes + j];
-  }
+  s.def.load(F, I, lanes, j, slots);
   s.pc = I[LI_PC * lanes + j];
   s.pred_true = I[LI_PRED_TRUE * lanes + j] != 0;
   s.next_seq = I[LI_NEXT_SEQ * lanes + j];
@@ -584,11 +752,39 @@ lane_loop_kernel(double* F, int* I, long long* Q, const double* tab,
   k.window = F[LF_WINDOW * lanes + j];
   k.tab = tab + j * tab_width;
   k.tab_width = tab_width;
+  Est e;
+  bool resume = false;
+  if constexpr (ADAPTIVE) {
+    e.ntp = F[LF_NTP * lanes + j];
+    e.nfp = F[LF_NFP * lanes + j];
+    e.nuf = F[LF_NUF * lanes + j];
+    e.gs = F[LF_GS * lanes + j];
+    e.gn = F[LF_GN * lanes + j];
+    e.lastf = F[LF_LASTF * lanes + j];
+    e.pr = F[LF_PR * lanes + j];
+    e.pp = F[LF_PP * lanes + j];
+    e.pmu = F[LF_PMU * lanes + j];
+    e.dec = F[LF_DEC * lanes + j];
+    e.minp = F[LF_MINP * lanes + j];
+    e.minf = F[LF_MINF * lanes + j];
+    e.tol = F[LF_TOL * lanes + j];
+    e.act = I[LI_ACT * lanes + j] != 0;
+    e.estmu = I[LI_ESTMU * lanes + j] != 0;
+    resume = I[LI_RESUME * lanes + j] != 0;
+    if (resume) {
+      arrive_advance(f, st, s, k, kc);
+      resume = false;
+    }
+  }
 
   int it = 0;
   while (it < cap && st[I_FIN] == 0 && !s.overflow) {
-    lane_body(f, st, s, k, b, kc);
     ++it;
+    if (pop_push<ADAPTIVE>(f, st, s, e, k, b, kc)) {
+      resume = true;
+      break;
+    }
+    arrive_advance(f, st, s, k, kc);
   }
 
 #pragma unroll
@@ -598,11 +794,7 @@ lane_loop_kernel(double* F, int* I, long long* Q, const double* tab,
   F[LF_PRED_T * lanes + j] = s.pred_t;
   F[LF_PRED_FD * lanes + j] = s.pred_fd;
   F[LF_PRED_WIN * lanes + j] = s.pred_win;
-#pragma unroll
-  for (int q = 0; q < DEF_SLOTS; ++q) {
-    F[(LF_DEF + q) * lanes + j] = s.def_time[q];
-    I[(LI_DEFSEQ + q) * lanes + j] = s.def_seq[q];
-  }
+  s.def.store(F, I, lanes, j);
   I[LI_PC * lanes + j] = s.pc;
   I[LI_PRED_TRUE * lanes + j] = s.pred_true ? 1 : 0;
   I[LI_NEXT_SEQ * lanes + j] = s.next_seq;
@@ -612,11 +804,34 @@ lane_loop_kernel(double* F, int* I, long long* Q, const double* tab,
   Q[LQ_CURSOR * lanes + j] = s.cursor;
   Q[LQ_CUR * lanes + j] = s.cur;
   Q[LQ_ITERS * lanes + j] += it;
-  const int bits = (st[I_FIN] == 0 ? 1 : 0) | (s.overflow ? 2 : 0);
+  if constexpr (ADAPTIVE) {
+    F[LF_NTP * lanes + j] = e.ntp;
+    F[LF_NFP * lanes + j] = e.nfp;
+    F[LF_NUF * lanes + j] = e.nuf;
+    F[LF_GS * lanes + j] = e.gs;
+    F[LF_GN * lanes + j] = e.gn;
+    F[LF_LASTF * lanes + j] = e.lastf;
+    I[LI_RESUME * lanes + j] = resume ? 1 : 0;
+  }
+  const int bits = ((st[I_FIN] == 0 && !s.overflow) ? FLAG_RUN : 0) |
+                   (s.overflow ? FLAG_OVERFLOW : 0) |
+                   (resume ? FLAG_REPLAN : 0);
   if (bits) atomicOr(flag, bits);
 }
 
+template <bool WIDE, bool ADAPTIVE>
+int launch_loop(double* F, int* I, long long* Q, const double* tab,
+                long long tab_width, const Bank& b, long long lanes, int cap,
+                int slots, const Consts& k, int* flag, cudaStream_t stream) {
+  const long long blocks = (lanes + LOOP_THREADS - 1) / LOOP_THREADS;
+  lane_loop_kernel<WIDE, ADAPTIVE><<<(unsigned)blocks, LOOP_THREADS, 0,
+                                     stream>>>(F, I, Q, tab, tab_width, b,
+                                               lanes, cap, slots, k, flag);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
 
 // C entry point, loaded with ctypes.  Launches on `stream` and returns
 // cudaGetLastError() (0 on success); it does not synchronise.
@@ -640,25 +855,39 @@ extern "C" int event_step_launch(const void* fs_in, const void* is_in,
 
 // C entry point of the lane loop, loaded with ctypes: F, I, Q are updated
 // in place and `flag` (one int, zeroed by the caller) collects the stop
-// bits.  Launches on `stream`, returns cudaGetLastError(), does not
-// synchronise.
+// bits.  `slots` is K, the chunk's deferred-fault slots: DEF_SLOTS takes
+// the register route, any other count the wide route; `adaptive` (0 or 1)
+// whether the chunk's lanes run the estimator.  Launches on `stream`,
+// returns cudaGetLastError(), does not synchronise.
 extern "C" int lane_loop_launch(void* F, void* I, void* Q, const void* tab,
                                 long long tab_width, const void* times,
                                 const void* kinds, const void* wins,
                                 long long bank_width, long long lanes,
-                                int cap, double c, double cp, double d,
-                                double r, double time_base, void* flag,
+                                int cap, int slots, int adaptive, double c,
+                                double cp, double d, double r,
+                                double time_base, void* flag,
                                 void* stream) {
   if (lanes <= 0) return 0;
-  const long long blocks = (lanes + LOOP_THREADS - 1) / LOOP_THREADS;
   const Consts k{c, cp, d, r, time_base};
   const Bank b{static_cast<const double*>(times),
                static_cast<const int*>(kinds),
                static_cast<const double*>(wins), bank_width};
-  lane_loop_kernel<<<(unsigned)blocks, LOOP_THREADS, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<double*>(F), static_cast<int*>(I),
-      static_cast<long long*>(Q), static_cast<const double*>(tab),
-      tab_width, b, lanes, cap, k, static_cast<int*>(flag));
-  return (int)cudaGetLastError();
+  double* f = static_cast<double*>(F);
+  int* i = static_cast<int*>(I);
+  long long* q = static_cast<long long*>(Q);
+  const double* t = static_cast<const double*>(tab);
+  int* fl = static_cast<int*>(flag);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool wide = slots != DEF_SLOTS;
+  if (!wide && !adaptive)
+    return launch_loop<false, false>(f, i, q, t, tab_width, b, lanes, cap,
+                                     slots, k, fl, s);
+  if (!wide)
+    return launch_loop<false, true>(f, i, q, t, tab_width, b, lanes, cap,
+                                    slots, k, fl, s);
+  if (!adaptive)
+    return launch_loop<true, false>(f, i, q, t, tab_width, b, lanes, cap,
+                                    slots, k, fl, s);
+  return launch_loop<true, true>(f, i, q, t, tab_width, b, lanes, cap,
+                                 slots, k, fl, s);
 }

@@ -26,8 +26,18 @@ Metric names used by the instrumented call sites:
 ``torch.run_s``                         host-loop seconds (each call's
                                         flag read back: synced)
 ``torch.readback_s``                    seconds copying results back
+``torch.replan_rounds``                 host round trips that re-planned
+                                        the adaptive lanes stopped in a
+                                        ``lane_loop`` call (counter)
+``torch.replan_s``                      host seconds of those round trips
+                                        (read back, ``maybe_replan``,
+                                        write back)
 ``torch.lanes_per_s``                   lanes/second of the last call
-``engine.deferred_overflows``           deferred-fault capacity trips
+``engine.replans``                      adaptive re-plans made (counter;
+                                        the lanes' ``n_replans`` summed)
+``engine.deferred_overflows``           chunks whose lanes overflowed the
+                                        8 deferred-fault slots and reran
+                                        with more
 ``kernels.lane_loop.launches``          lane_loop kernel launches
 ``kernels.event_step.launches``         event_step kernel launches (0 on
                                         the lane engine's CUDA path, whose

@@ -4,13 +4,16 @@
   ``chip_smoke.py`` finds no import of ``jax`` and none of ``repro`` /
   ``repro.*``.
 * A subprocess in which ``jax`` and ``repro`` cannot be imported at all
-  imports ``repro_torch``, runs a tiny CPU grid, builds a tiny CPU
+  imports ``repro_torch``, runs a tiny CPU grid (static and adaptive
+  lanes, over traces of a generative predictor model), builds a tiny CPU
   trainer that takes a step, a full and a proactive save and a restore,
   and serves a tiny CPU ``generate`` through both attention routes;
   afterwards ``sys.modules`` holds neither.
 * Without CUDA, an entry point called without ``device=`` raises instead
   of running on the CPU.
-* The constants and configs the port re-declares equal the reference's.
+* The constants and configs the port re-declares equal the reference's
+  (the estimator's ``P_HAT_MIN`` among them), and the lane loop's new rows
+  sit between the fixed rows and the deferred-fault slots.
 """
 
 import ast
@@ -52,7 +55,9 @@ def test_port_files_found():
             "ckpt_delta.py", "manager.py", "loop.py", "transformer.py",
             "adamw.py", "pipeline.py", "scheduler.py", "runtime.py",
             "convert.py", "train.py", "engine.py", "serve.py",
-            "flash_attention.py", "decode_attention.py", "ops.py"} <= names
+            "flash_attention.py", "decode_attention.py", "ops.py",
+            "exact.py", "estimator.py", "base.py", "models.py",
+            "registry.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -88,6 +93,21 @@ res = repro_torch.simulate_batch(
     [1200.0, 2000.0], cp=30.0, trust=ThresholdTrust(100.0),
     inexact_window=300.0, trace_seeds=[3, 4], device="cpu")
 assert res.makespan.shape == (2, 2) and (res.makespan > 10000.0).all()
+
+from repro_torch.experiments import ScenarioSpec, build_strategy
+from repro_torch.predictors import AdaptiveConfig
+
+cfg = AdaptiveConfig(prior_recall=0.5, prior_precision=0.5, min_preds=2,
+                     min_faults=1, tol=0.02, model_order="exact")
+res = repro_torch.simulate_batch(
+    traces, Platform(mu=2500.0, c=60.0, d=10.0, r=30.0), 10000.0,
+    [1200.0], cp=30.0, trust=ThresholdTrust(100.0), adaptive=cfg,
+    trace_seeds=[3, 4], device="cpu")
+assert (res.n_replans > 0).any()
+sc = ScenarioSpec(n=64, mu_ind=64 * 3e4, time_base_years_total=0.05,
+                  start=0.0, predictor={"name": "bursty"})
+assert sc.make_trace(0).times.size > 0
+assert build_strategy("adaptive", sc).adaptive is not None
 
 import dataclasses
 import tempfile
@@ -237,6 +257,19 @@ def test_redeclared_constants_match_reference():
     for name in ("_PC_POP", "_PC_FAULT", "_PC_PRED", "_PC_FINAL",
                  "_PC_SILENT", "_DEF_SLOTS", "_ADV_PASSES", "_BIG_SEQ"):
         assert getattr(ll, name) == getattr(ref_bj, name), name
+    import repro.predictors.estimator as ref_est
+
+    import repro_torch.predictors.estimator as est
+    assert est.P_HAT_MIN == ref_est.P_HAT_MIN == ll.P_HAT_MIN
+    # The estimator's rows follow the fixed ones and precede the slots,
+    # one row each, so the slots stay last at any slot count.
+    lf = [ll.LF_WINDOW, ll.LF_NTP, ll.LF_NFP, ll.LF_NUF, ll.LF_GS, ll.LF_GN,
+          ll.LF_LASTF, ll.LF_PR, ll.LF_PP, ll.LF_PMU, ll.LF_DEC, ll.LF_MINP,
+          ll.LF_MINF, ll.LF_TOL, ll.LF_DEF]
+    li = [ll.LI_COUNTS + len(ll.COUNTS) - 1, ll.LI_ACT, ll.LI_ESTMU,
+          ll.LI_NREPLANS, ll.LI_RESUME, ll.LI_DEFSEQ]
+    assert lf == list(range(lf[0], lf[0] + len(lf)))
+    assert li == list(range(li[0], li[0] + len(li)))
 
 
 def test_redeclared_checkpoint_constants_match_reference(tmp_path):

@@ -12,9 +12,11 @@ must equal the JAX package's numpy lanes on every ``BatchResult`` field
 
 Also: the largest per-lane iteration count is what a lockstep loop with a
 stop test every iteration needs; a chunk takes ``ceil(iterations / cap)``
-calls; overflow raises under every cap; the CUDA source's row and code
-numbers are the Python module's.  The ``gpu``-marked cases hold the kernel
-to the plain loop on the card and skip here.
+calls; a trace that overflows the 8 deferred-fault slots gives the numpy
+lanes' bits under every cap (its lanes rerun with more slots); the CUDA
+source's row, flag and code numbers are the Python module's.  The
+``gpu``-marked cases hold the kernel to the plain loop on the card and
+skip here.
 """
 
 import dataclasses
@@ -217,23 +219,35 @@ def test_largest_lane_count_is_lockstep_need(fid, monkeypatch, registry):
         _lockstep_iterations(lanes, g)
 
 
-def _overflow_lanes(device="cpu"):
+def _overflow_trace():
     n = 12  # > _DEF_SLOTS overlapping armed windows
     times = 1000.0 + 10.0 * np.arange(n)
-    trace = EventTrace(times, np.full(n, FAULT_PRED, dtype=np.int8), 1e7,
-                       np.full(n, 1e6))
+    return EventTrace(times, np.full(n, FAULT_PRED, dtype=np.int8), 1e7,
+                      np.full(n, 1e6))
+
+
+_OVERFLOW_KW = dict(cp=30.0, trace_indices=[0, 1, 1, 0],
+                    periods=[1200.0] * 4, windows=[0.0] * 4,
+                    seeds=[3, 4, 5, 6])
+
+
+def _overflow_lanes(device="cpu"):
     return simulate_lanes(
-        _carry([trace] + _traces(seeds=(3,))), PLAT, TIME_BASE, cp=30.0,
-        trace_indices=[0, 1, 1, 0], periods=[1200.0] * 4,
-        trusts=[sim.AlwaysTrust()] * 4, windows=[0.0] * 4,
-        seeds=[3, 4, 5, 6], device=device)
+        _carry([_overflow_trace()] + _traces(seeds=(3,))), PLAT, TIME_BASE,
+        trusts=[sim.AlwaysTrust()] * 4, device=device, **_OVERFLOW_KW)
 
 
 @pytest.mark.parametrize("cap", CAPS, ids=CAP_IDS)
 def test_overflow_raises_under_caps(cap, monkeypatch, registry):
+    """Under every cap, the overflowed lanes' rerun with more slots gives
+    the numpy lanes' bits; the overflow is counted once for the chunk."""
+    from repro.core.batch import simulate_lanes as ref_simulate_lanes
     monkeypatch.setattr(batch_torch, "_LAUNCH_CAP", cap)
-    with pytest.raises(RuntimeError, match="deferred-fault capacity"):
-        _overflow_lanes()
+    want = ref_simulate_lanes([_overflow_trace()] + _traces(seeds=(3,)),
+                              REF_PLAT, TIME_BASE,
+                              trusts=[ref_sim.AlwaysTrust()] * 4,
+                              **_OVERFLOW_KW)
+    assert list(_overflow_lanes()) == list(want)
     assert registry.counters["engine.deferred_overflows"] == 1
 
 
@@ -241,12 +255,13 @@ def test_overflowed_lane_stops_others_run_on(monkeypatch):
     """The plain loop holds an overflowed lane where it overflowed and
     runs the others to their end, as the kernel does lane by lane."""
     seen = _capture(monkeypatch)
-    with pytest.raises(RuntimeError):
-        _overflow_lanes()
+    _overflow_lanes()
     lanes, g = seen[0]
+    assert lanes.slots == ll._DEF_SLOTS
     whole = lanes.clone()
     flag = int(ll.lane_loop_ref(whole, g, cap=NO_CAP))
-    assert flag == 3        # the overflowed lanes stop unfinished
+    # The overflowed lanes stop unfinished; none can run on.
+    assert flag == ll.FLAG_OVERFLOW
     over = whole.i[ll.LI_OVERFLOW] != 0
     assert over.any() and not over.all()
     assert (whole.i[es.I_FIN][~over] == 1).all()
@@ -324,10 +339,10 @@ def test_kernel_rows_and_codes_match_module():
              and isinstance(getattr(es, n), int)},
           "N_F": es.N_F, "N_I": es.N_I,
           **{n: getattr(ll, n) for n in dir(ll)
-             if n[:3] in ("LF_", "LI_", "LQ_") or n in ("N_LF", "N_LI",
-                                                        "N_LQ")},
+             if n[:3] in ("LF_", "LI_", "LQ_") or n == "N_LQ"},
           **{n[1:]: getattr(ll, n) for n in dir(ll)
              if n.startswith(("_PC_", "_TRUST_"))},
+          **{n: getattr(ll, n) for n in dir(ll) if n.startswith("FLAG_")},
           "DEF_SLOTS": ll._DEF_SLOTS, "BIG_SEQ": ll._BIG_SEQ,
           "ADV_PASSES": ll._ADV_PASSES, "N_COUNTS": len(ll.COUNTS),
           **{n: getattr(traces, n) for n in ("FAULT_UNPRED", "FAULT_PRED",
@@ -341,6 +356,13 @@ def test_kernel_rows_and_codes_match_module():
               "C_TRUSTED_TRUE", "C_IGNORED", "C_SILENT"]
     assert [c[n] for n in counts] == list(range(len(ll.COUNTS)))
     assert len(counts) == len(ll.COUNTS)
+    from repro_torch.predictors.estimator import P_HAT_MIN
+    hat, = re.findall(r"constexpr double P_HAT_MIN = ([0-9.e+-]+);",
+                      CSRC.read_text())
+    assert float(hat) == P_HAT_MIN == ll.P_HAT_MIN
+    for name in ("LF_NTP", "LF_TOL", "LF_DEF", "LI_ACT", "LI_RESUME",
+                 "LI_DEFSEQ", "FLAG_REPLAN"):
+        assert c[name] == getattr(ll, name), name
 
 
 # -- on the card ---------------------------------------------------------------
@@ -352,10 +374,7 @@ def _need_cuda():
 
 
 def _to_cuda(lanes, g):
-    return (ll.Lanes(*(t.cuda() for t in dataclasses.astuple(lanes))),
-            dataclasses.replace(g, times=g.times.cuda(),
-                                kinds=g.kinds.cuda(), wins=g.wins.cuda(),
-                                slots=g.slots.cuda(), zero=g.zero.cuda()))
+    return lanes.to("cuda"), g.to("cuda")
 
 
 def _bits_equal(a, b) -> bool:
@@ -403,34 +422,11 @@ def test_cuda_chunk_launches_no_event_step(registry):
     assert es.event_step.launches == before
 
 
-def _golden_makespans(name, device):
-    from repro.experiments import ScenarioSpec, StrategySpec
-    want = GOLDEN[name]
-    scenario = ScenarioSpec.from_dict(want["scenario"])
-    strat = StrategySpec.from_dict(want["strategy"]).build(scenario)
-    traces = _carry(scenario.make_traces())
-    p = scenario.platform
-    n = len(traces)
-    return simulate_lanes(
-        traces, Platform(mu=p.mu, c=p.c, d=p.d, r=p.r), scenario.time_base,
-        cp=scenario.cp, trace_indices=list(range(n)),
-        periods=[float(strat.period)] * n,
-        trusts=[_port_trust(strat.trust)] * n,
-        windows=[strat.inexact_window] * n,
-        window_modes=[strat.window_mode] * n,
-        window_periods=[strat.window_period] * n,
-        n_verifies=[strat.n_verify] * n,
-        verify_costs=[strat.verify_cost] * n,
-        keep_ckpts=[strat.keep_ckpts] * n,
-        seeds=[scenario.seed + 7919 * i for i in range(n)], device=device)
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", sorted(GOLDEN))
 def test_cuda_golden_cell(name):
     """The golden parity net on the card, through the kernel, ``==``."""
     _need_cuda()
-    if name == "adaptive_stale_prior":
-        pytest.skip("adaptive lanes: a later slice")
-    ms = _golden_makespans(name, "cuda")
+    from test_torch_golden import golden_makespans
+    ms = golden_makespans(name, "cuda")
     assert [float(m) for m in ms] == GOLDEN[name]["makespans"], name

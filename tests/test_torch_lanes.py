@@ -10,9 +10,11 @@ carried across with ``traces_from_numpy``.  Tolerance: none (``==``),
 the engines' bit-for-bit contract.
 
 Also: chunked equals unchunked, a stop test every iteration equals the
-engine's stop cadence, deferred-fault overflow raises, adaptive lanes
-raise, and one small case against the reference's ``backend="jax"`` (in
-an x64 subprocess).
+engine's stop cadence, a trace that overflows the 8 deferred-fault slots
+gives the numpy lanes' bits (its lanes rerun with more slots), an
+adaptive lane under a trust policy other than Threshold or Never raises,
+and one small case against the reference's ``backend="jax"`` (in an x64
+subprocess).
 """
 
 import dataclasses
@@ -205,28 +207,33 @@ def test_stop_test_cadence_changes_no_bit(monkeypatch):
 
 
 def test_deferred_overflow_raises():
-    """More in-flight deferred fault dates than the fixed slot capacity
-    fail loudly (the numpy engine handles the same trace)."""
+    """More in-flight deferred fault dates than the 8 slots: the lane is
+    rerun with more slots and gives the numpy engine's bits (whose slots
+    grow); the overflow is still counted, once for the chunk."""
     n = 12  # > _DEF_SLOTS overlapping armed windows
     times = 1000.0 + 10.0 * np.arange(n)
     trace = EventTrace(times, np.full(n, FAULT_PRED, dtype=np.int8), 1e7,
                        np.full(n, 1e6))
     kw = dict(cp=30.0, trace_seeds=[3])
-    ref_simulate_batch([trace], REF_PLAT, TIME_BASE, [1200.0],
-                       trust=ref_sim.AlwaysTrust(), **kw)
+    ref = ref_simulate_batch([trace], REF_PLAT, TIME_BASE, [1200.0],
+                             trust=ref_sim.AlwaysTrust(), **kw)
     reg = get_registry()
     before = reg.counters.get("engine.deferred_overflows", 0)
-    with pytest.raises(RuntimeError, match="deferred-fault capacity"):
-        simulate_batch(_carry([trace]), PLAT, TIME_BASE, [1200.0],
-                       trust=sim.AlwaysTrust(), device="cpu", **kw)
+    port = simulate_batch(_carry([trace]), PLAT, TIME_BASE, [1200.0],
+                          trust=sim.AlwaysTrust(), device="cpu", **kw)
+    _assert_bitwise(ref, port, "overflowed lane")
     assert reg.counters["engine.deferred_overflows"] == before + 1
 
 
 def test_adaptive_lanes_raise():
-    with pytest.raises(NotImplementedError, match="Queue A"):
+    """An adaptive lane must plan its threshold: other trusts raise, as in
+    the reference's engines."""
+    from repro_torch.predictors import AdaptiveConfig
+    cfg = AdaptiveConfig(prior_recall=0.5, prior_precision=0.5)
+    with pytest.raises(ValueError, match="Threshold or Never"):
         simulate_batch(_carry(_traces(seeds=(1,))), PLAT, TIME_BASE,
-                       [1200.0], trust=sim.ThresholdTrust(100.0),
-                       adaptive=object(), device="cpu")
+                       [1200.0], trust=sim.AlwaysTrust(), adaptive=cfg,
+                       device="cpu")
 
 
 def test_period_below_checkpoint_raises():

@@ -2,7 +2,9 @@
 
 * ``ScenarioSpec(...).make_trace(i)``: times, kinds and windows equal the
   reference's for Exponential and Weibull faults, per-processor and
-  platform-level streams, prediction windows and the silent stream.
+  platform-level streams, prediction windows and the silent stream (the
+  other distributions and the predictor models:
+  ``tests/test_torch_predictors.py``).
 * ``t_rfo``, ``beta_lim`` and ``optimal_period_with_prediction`` (both
   cadences) return the same floats.
 * ``evaluate_strategies`` on the CPU returns the reference's mean
@@ -83,12 +85,20 @@ def test_scenario_defaults_match_reference():
 
 
 def test_unported_scenarios_raise():
-    with pytest.raises(NotImplementedError):
-        ScenarioSpec(model_order="exact")
-    with pytest.raises(NotImplementedError):
-        ScenarioSpec(predictor={"name": "lead_time"})
-    with pytest.raises(NotImplementedError):
-        ScenarioSpec(dist={"name": "lognormal"}).make_trace(0)
+    """What is still unported raises: the strategies of ROADMAP A4 by
+    name; an unknown name or model order is refused as the reference
+    refuses it."""
+    from repro_torch.experiments import build_strategy
+    for name in ("young", "nopred", "prediction", "window_proactive",
+                 "silent_verify", "dynamic_rfo"):
+        with pytest.raises(NotImplementedError, match="A4"):
+            build_strategy(name, ScenarioSpec())
+    with pytest.raises(KeyError):
+        build_strategy("no_such_strategy", ScenarioSpec())
+    with pytest.raises(ValueError):
+        ScenarioSpec(model_order="second")
+    with pytest.raises(KeyError):
+        ScenarioSpec(dist={"name": "no_such_dist"}).make_trace(0)
 
 
 PLATFORMS = [(60150.0, 600.0, 60.0, 600.0), (2500.0, 60.0, 10.0, 30.0),
