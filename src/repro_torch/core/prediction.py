@@ -13,9 +13,10 @@ Implements:
     ``optimal_period_with_prediction`` accept ``cadence="restart"``
     (paper, default) or ``"continue"`` (engine-faithful).
 
-The port's own copy of ``repro/core/prediction.py:47-349`` (first-order
-model), operation for operation, so planned periods and thresholds are
-bitwise the JAX package's.
+The port's own copy of ``repro/core/prediction.py:47-349`` (the
+first-order model and the simple policy's waste of §4.1), operation for
+operation, so planned periods and thresholds are bitwise the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ __all__ = [
     "beta_lim",
     "waste1",
     "waste2",
+    "waste_simple_policy",
     "cadence_correction",
     "t_nopred",
     "t_pred",
@@ -122,6 +124,23 @@ def waste1(t: float, pp: PredictedPlatform) -> float:
     return (c * (1.0 - (plat.d + plat.r) / mu)) / t \
         + (plat.d + plat.r - c / 2.0) / mu \
         + t / (2.0 * mu)
+
+
+def waste_simple_policy(t: float, q: float, pp: PredictedPlatform) -> float:
+    """Total waste of the simple policy (Eq. 14 plugged into Eq. 11)."""
+    plat, pred = pp.platform, pp.predictor
+    mu, c, cp = plat.mu, plat.c, pp.cp
+    r, p = pred.recall, pred.precision
+    if t < c:
+        raise ValueError(f"T={t} < C={c}")
+    wff = c / t
+    wfault = (1.0 / mu) * (
+        (1.0 - r * q) * t / 2.0
+        + plat.d + plat.r
+        + q * r / p * cp
+        - q * r * cp * cp / (p * t) * (1.0 - p / 2.0)
+    )
+    return wff + wfault - wff * wfault
 
 
 def _waste2_coeffs(pp: PredictedPlatform) -> tuple[float, float, float, float]:

@@ -31,9 +31,10 @@ each prediction event additionally carries the announced interval length I
 RNG.  ``window=0`` leaves ``windows`` unset, reproducing exact-date traces
 bit-for-bit.
 
-The port's own copy of ``repro/core/traces.py`` (the per-trace path; the
-batched bank path is ROADMAP A2): the same numpy draws in the same order, so a trace made here from
-a seed is bitwise the JAX package's.  :func:`traces_from_numpy` carries a
+The port's own copy of ``repro/core/traces.py``, the per-trace path and
+the batched bank path (:func:`make_event_trace_bank`): the same numpy
+draws in the same order, so a trace or a bank made here from a seed is
+bitwise the JAX package's.  :func:`traces_from_numpy` carries a
 bank made elsewhere across as arrays.
 """
 
@@ -58,8 +59,11 @@ __all__ = [
     "LogNormalDist",
     "Empirical",
     "renewal_trace",
+    "renewal_trace_bank",
     "superposed_trace",
+    "superposed_trace_bank",
     "make_event_trace",
+    "make_event_trace_bank",
     "traces_from_numpy",
     "lanl_like_log",
 ]
@@ -189,6 +193,39 @@ def renewal_trace(dist: Distribution, horizon: float,
     return times[times < horizon]
 
 
+def renewal_trace_bank(dist: Distribution, horizon: float,
+                       rng: np.random.Generator,
+                       n_traces: int) -> list[np.ndarray]:
+    """A whole bank of independent renewal traces from one generator.
+
+    Each sampling wave draws a ``(still-running traces, est)`` matrix in a
+    single RNG call instead of one batch per trace, so generating a
+    200-trace bank costs a handful of vectorized draws.  The bank is
+    statistically identical to ``[renewal_trace(dist, horizon, rng_i)]``
+    but draws from one shared stream, so it is *not* sample-for-sample
+    reproducible against per-trace seeded generation.
+    """
+    if horizon <= 0 or n_traces <= 0:
+        return [np.empty(0, dtype=np.float64) for _ in range(n_traces)]
+    est = max(16, int(horizon / max(dist.mean, 1e-12) * 1.5) + 8)
+    chunks: list[list[np.ndarray]] = [[] for _ in range(n_traces)]
+    totals = np.zeros(n_traces, dtype=np.float64)
+    live = np.arange(n_traces)
+    while live.size:
+        draws = dist.sample(rng, live.size * est).reshape(live.size, est)
+        draws = np.maximum(draws, 1e-9)
+        for row, tr in enumerate(live):
+            chunks[tr].append(draws[row])
+        totals[live] += draws.sum(axis=1)
+        live = live[totals[live] < horizon]
+        est = max(16, est // 2)
+    out = []
+    for tr in range(n_traces):
+        times = np.cumsum(np.concatenate(chunks[tr]))
+        out.append(times[times < horizon])
+    return out
+
+
 def superposed_trace(dist_ind: Distribution, n: int, horizon: float,
                      rng: np.random.Generator) -> np.ndarray:
     """Superposition of n i.i.d. per-processor renewal processes (paper §5.1).
@@ -208,6 +245,41 @@ def superposed_trace(dist_ind: Distribution, n: int, horizon: float,
     if not out:
         return np.empty(0, dtype=np.float64)
     return np.sort(np.concatenate(out))
+
+
+def superposed_trace_bank(dist_ind: Distribution, n: int, horizon: float,
+                          rng: np.random.Generator,
+                          n_traces: int) -> list[np.ndarray]:
+    """A bank of superposed traces: all ``n_traces * n`` processor streams
+    advance in shared sampling waves (one RNG call per wave for the whole
+    bank), then events are split back per trace and sorted."""
+    if n_traces <= 0:
+        return []
+    # The surviving streams are carried as compacted (index, clock) pairs —
+    # no scatter back into the full n_traces*n array, whose first wave would
+    # dominate the cost for paper-sized platforms (2^16 procs per trace).
+    t = np.maximum(dist_ind.sample(rng, n_traces * n), 1e-9)
+    hit = t < horizon
+    active = np.flatnonzero(hit)
+    t = t[active]
+    times_out: list[np.ndarray] = [t]
+    owner_out: list[np.ndarray] = [active // n]
+    while active.size:
+        draws = np.maximum(dist_ind.sample(rng, active.size), 1e-9)
+        t = t + draws
+        hit = t < horizon
+        t = t[hit]
+        active = active[hit]
+        times_out.append(t)
+        owner_out.append(active // n)
+    if not any(part.size for part in times_out):
+        return [np.empty(0, dtype=np.float64) for _ in range(n_traces)]
+    times = np.concatenate(times_out)
+    owner = np.concatenate(owner_out)
+    order = np.lexsort((times, owner))
+    times, owner = times[order], owner[order]
+    counts = np.bincount(owner, minlength=n_traces)
+    return np.split(times, np.cumsum(counts)[:-1])
 
 
 # ---------------------------------------------------------------------------
@@ -360,6 +432,62 @@ def _merge_events(faults: np.ndarray, kinds: np.ndarray,
                else np.full(false_preds.size, float(window)))
         windows = np.concatenate([wf, wfp, np.zeros(silents.size)])[order]
     return EventTrace(times, all_kinds, horizon, windows=windows)
+
+
+def make_event_trace_bank(
+    fault_dist: Distribution,
+    mu: float,
+    recall: float,
+    precision: float,
+    horizon: float,
+    rng: np.random.Generator,
+    *,
+    false_pred_dist: Distribution | None = None,
+    n_processors: int | None = None,
+    n_traces: int = 1,
+    window: float = 0.0,
+    predictor_model=None,
+    silent_mu: float | None = None,
+    silent_dist: Distribution | None = None,
+) -> list[EventTrace]:
+    """A whole bank of merged event traces sampled from one generator.
+
+    The vectorized counterpart of calling :func:`make_event_trace` once per
+    trace: fault streams (including the N-processor superposition path)
+    and the predictor model's bank-level prediction streams are each drawn
+    in shared RNG waves.  Statistically identical to per-trace generation,
+    but the draw order differs, so banks are reproducible per
+    ``(rng seed, n_traces)`` — not per trace index.
+    """
+    if n_processors:
+        fault_bank = superposed_trace_bank(
+            fault_dist.rescaled(mu * n_processors), n_processors, horizon,
+            rng, n_traces)
+    else:
+        fault_bank = renewal_trace_bank(fault_dist.rescaled(mu), horizon,
+                                        rng, n_traces)
+
+    if predictor_model is None:
+        from ..predictors.models import OraclePredictor
+        predictor_model = OraclePredictor(recall, precision)
+    streams = predictor_model.predict_bank(
+        fault_bank, mu=mu, horizon=horizon, rng=rng,
+        false_dist=false_pred_dist or fault_dist)
+
+    # Silent streams are drawn last (one bank-level wave) so silent-free
+    # banks stay bit-for-bit identical from the same generator state.
+    if silent_mu is not None and math.isfinite(silent_mu):
+        if silent_mu <= 0.0:
+            raise ValueError(f"silent_mu must be positive, got {silent_mu}")
+        sdist = (silent_dist or Exponential(1.0)).rescaled(silent_mu)
+        silent_bank = renewal_trace_bank(sdist, horizon, rng, n_traces)
+    else:
+        silent_bank = [None] * n_traces
+
+    return [_merge_events(f, s.kinds, s.false_times, horizon, window=window,
+                          true_windows=s.true_windows,
+                          false_windows=s.false_windows, silents=sil)
+            for f, s, sil in zip(fault_bank, streams, silent_bank)]
 
 
 def traces_from_numpy(times: Sequence[np.ndarray], kinds: Sequence[np.ndarray],

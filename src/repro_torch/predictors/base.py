@@ -10,15 +10,14 @@ models are registered by name (``@register_predictor``) so a
 :class:`repro_torch.experiments.spec.PredictorSpec` builds them from plain
 data.
 
-The port's own copy of ``repro/predictors/base.py`` (per-trace path): the
-batched bank draw (``predict_bank``) is the bank path of ROADMAP A2 and is
-not here.
+The port's own copy of ``repro/predictors/base.py``, the per-trace draw
+(``predict``) and the bank draw (``predict_bank``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Sequence
 
 import numpy as np
 
@@ -68,6 +67,20 @@ class PredictorModel:
                 rng: np.random.Generator,
                 false_dist: Distribution) -> PredictionStream:
         raise NotImplementedError
+
+    def predict_bank(self, fault_bank: Sequence[np.ndarray], *, mu: float,
+                     horizon: float, rng: np.random.Generator,
+                     false_dist: Distribution) -> list[PredictionStream]:
+        """Prediction streams for a whole trace bank from one generator.
+
+        The default draws per trace sequentially from the shared stream
+        (statistically identical to per-trace generation; bank draws are
+        documented as reproducible per (seed, n_traces), not per index).
+        The oracle overrides this with the vectorized bank draw order so
+        legacy batched banks stay bit-for-bit.
+        """
+        return [self.predict(f, mu=mu, horizon=horizon, rng=rng,
+                             false_dist=false_dist) for f in fault_bank]
 
 
 # ---------------------------------------------------------------------------

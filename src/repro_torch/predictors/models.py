@@ -19,9 +19,9 @@
                             long-run false rate.
 
 All models draw exclusively from the trace RNG they are handed.  The port's
-own copy of ``repro/predictors/models.py`` (per-trace path): the same RNG
-draws in the same order, so traces are bitwise the JAX package's.  The
-oracle's batched bank draw is the bank path of ROADMAP A2.
+own copy of ``repro/predictors/models.py`` (the per-trace draws and the
+oracle's bank draw): the same RNG draws in the same order, so traces and
+banks are bitwise the JAX package's.
 """
 
 from __future__ import annotations
@@ -32,7 +32,8 @@ from typing import Any, Mapping
 import numpy as np
 
 from ..core.traces import (FAULT_PRED, FAULT_UNPRED, Distribution,
-                           Exponential, renewal_trace)
+                           Exponential, renewal_trace,
+                           renewal_trace_bank)
 from .base import PredictionStream, PredictorModel, register_predictor
 
 __all__ = [
@@ -77,6 +78,26 @@ class OraclePredictor(PredictorModel):
         kinds = np.where(predicted, FAULT_PRED, FAULT_UNPRED).astype(np.int8)
         false_preds = self._false_stream(mu, horizon, rng, false_dist)
         return PredictionStream(kinds, false_preds)
+
+    def predict_bank(self, fault_bank, *, mu: float, horizon: float,
+                     rng: np.random.Generator,
+                     false_dist: Distribution) -> list[PredictionStream]:
+        # The vectorized bank draw order of the legacy
+        # make_event_trace_bank: one flags wave for every fault of the
+        # bank, then one shared false-alarm bank.
+        sizes = np.array([f.size for f in fault_bank])
+        flags = rng.random(int(sizes.sum())) < self.recall
+        kind_bank = [np.where(part, FAULT_PRED, FAULT_UNPRED).astype(np.int8)
+                     for part in np.split(flags, np.cumsum(sizes)[:-1])]
+        n_traces = len(fault_bank)
+        if self.recall > 0.0 and self.precision < 1.0:
+            mean_false = _false_mean(self.recall, self.precision, mu)
+            false_bank = renewal_trace_bank(false_dist.rescaled(mean_false),
+                                            horizon, rng, n_traces)
+        else:
+            false_bank = [np.empty(0, dtype=np.float64)] * n_traces
+        return [PredictionStream(k, fp)
+                for k, fp in zip(kind_bank, false_bank)]
 
 
 @register_predictor("oracle")

@@ -167,7 +167,8 @@ def _entry_points():
     from repro_torch.core.waste import Platform
     from repro_torch.configs import get
     from repro_torch.configs.base import InputShape, PlatformConfig
-    from repro_torch.experiments import evaluate_strategies
+    from repro_torch.experiments import (ExperimentSpec, ScenarioSpec,
+                                         evaluate_strategies, run_experiment)
     from repro_torch.models.convert import params_from_numpy
     from repro_torch.launch.serve import main as serve_main
     from repro_torch.models.model import init_cache, init_params
@@ -185,6 +186,9 @@ def _entry_points():
         "evaluate_strategies": lambda: evaluate_strategies(
             [trace], plat, 1000.0, 30.0,
             [Strategy("s", 600.0, NeverTrust())]),
+        "run_experiment": lambda: run_experiment(ExperimentSpec(
+            "x", ScenarioSpec(n=4096, time_base_years_total=10.0,
+                              n_traces=1), strategies=("rfo",))),
         "run_lanes_torch": lambda: run_lanes_torch(
             None, plat, 1000.0, np.zeros(1, np.int64), np.full(1, 600.0),
             np.zeros(1, np.int8), np.zeros(1), np.zeros(1),
@@ -202,7 +206,8 @@ def _entry_points():
 
 
 @pytest.mark.parametrize("entry", ["simulate_batch", "simulate_lanes",
-                                   "evaluate_strategies", "run_lanes_torch",
+                                   "evaluate_strategies", "run_experiment",
+                                   "run_lanes_torch",
                                    "FaultTolerantTrainer", "init_params",
                                    "params_from_numpy", "init_cache",
                                    "serve_cli"])

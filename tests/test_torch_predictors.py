@@ -31,6 +31,7 @@ from repro.core.batch import simulate_batch as ref_simulate_batch  # noqa: E402
 from repro.experiments import PredictorSpec as RefPredictorSpec  # noqa: E402
 from repro.experiments import ScenarioSpec as RefScenario  # noqa: E402
 from repro.experiments import build_strategy as ref_build  # noqa: E402
+from repro.experiments import list_strategies as ref_list_strategies  # noqa: E402
 from repro.experiments import evaluate_strategies as ref_eval  # noqa: E402
 from repro.predictors import build_predictor as ref_build_predictor  # noqa: E402
 
@@ -148,8 +149,7 @@ def test_registered_strategies_match_reference(order):
     kw = _sweep_scenario(model_order=order)
     ref_sc, sc = RefScenario(**kw), ScenarioSpec(**kw)
     assert sc.model_order == order
-    assert list_strategies() == ["adaptive", "best_period", "fixed_period",
-                                 "optimal_prediction", "rfo"]
+    assert list_strategies() == ref_list_strategies()
     cases = [("rfo", {}), ("optimal_prediction", {}), ("adaptive", {}),
              ("adaptive", dict(STALE_PRIOR)),
              ("adaptive", dict(halflife=48.0, min_preds=8, min_faults=4,

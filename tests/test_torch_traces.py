@@ -11,6 +11,9 @@
   makespans (and so its waste) for rfo, optimal_prediction and the
   BestPeriod search over rfo; its steps compose, and a pass over a subset
   of the bank's traces gives those columns of the whole pass.
+* ``make_traces(batched=True)`` gives the reference's banks across the
+  distributions, predictor models, windows and the silent stream, and each
+  predictor model's ``predict_bank`` the reference's streams.
 
 Tolerance: none.  The port copies the host code operation for
 operation, and the lane engine is bitwise the numpy engine.
@@ -85,14 +88,20 @@ def test_scenario_defaults_match_reference():
 
 
 def test_unported_scenarios_raise():
-    """What is still unported raises: the strategies of ROADMAP A4 by
-    name; an unknown name or model order is refused as the reference
-    refuses it."""
-    from repro_torch.experiments import build_strategy
+    """What the port refuses raises: the JAX package's ``jax`` engine by
+    name; an unknown strategy name or model order is refused as the
+    reference refuses it.  Every strategy the reference registers builds
+    (``tests/test_torch_experiments.py`` holds them field for field)."""
+    from repro_torch.experiments import build_strategy, evaluate_strategies
     for name in ("young", "nopred", "prediction", "window_proactive",
                  "silent_verify", "dynamic_rfo"):
-        with pytest.raises(NotImplementedError, match="A4"):
-            build_strategy(name, ScenarioSpec())
+        build_strategy(name, ScenarioSpec(dist={"name": "weibull",
+                                                "params": {"shape": 0.7}}))
+    sc = ScenarioSpec(n=4096, n_traces=1)
+    with pytest.raises(ValueError, match="auto, batch or scalar"):
+        evaluate_strategies(sc.make_traces(), sc.platform, sc.time_base,
+                            sc.cp, [policies.rfo(sc.platform)],
+                            engine="jax", device="cpu")
     with pytest.raises(KeyError):
         build_strategy("no_such_strategy", ScenarioSpec())
     with pytest.raises(ValueError):
@@ -196,3 +205,87 @@ def test_trace_subset_is_those_columns_of_the_whole():
     assert best_means(whole, rows) == evaluate_strategies(
         traces, sc.platform, sc.time_base, sc.cp, strategies, seed=sc.seed,
         device="cpu")
+
+
+BANK_SCENARIOS = {
+    "exponential": dict(n=4096, time_base_years_total=100.0),
+    "weibull": dict(n=4096, time_base_years_total=100.0,
+                    dist={"name": "weibull", "params": {"shape": 0.5}}),
+    "uniform": dict(n=1024, time_base_years_total=50.0,
+                    dist={"name": "uniform"}),
+    "lognormal": dict(n=1024, time_base_years_total=50.0,
+                      dist={"name": "lognormal", "params": {"sigma": 1.5}}),
+    "empirical": dict(n=1024, time_base_years_total=50.0,
+                      dist={"name": "empirical",
+                            "params": {"samples": [1.0, 2.0, 9.0]}}),
+    "lanl": dict(n=1024, time_base_years_total=50.0, dist={"name": "lanl"}),
+    "platform_stream": dict(n=4096, time_base_years_total=100.0,
+                            per_processor=False),
+    "window_silent": dict(n=4096, time_base_years_total=100.0, window=900.0,
+                          silent_mu_ind=2.0e8),
+    "lead_time": dict(n=4096, time_base_years_total=100.0,
+                      predictor={"name": "lead_time",
+                                 "params": {"lead_mean": 3600.0,
+                                            "min_lead": 600.0}}),
+    "drifting": dict(n=4096, time_base_years_total=100.0,
+                     predictor={"name": "drifting",
+                                "params": {"precision_end": 0.3}}),
+    "bursty": dict(n=4096, time_base_years_total=100.0,
+                   predictor={"name": "bursty"}),
+    "no_false_alarms": dict(n=4096, time_base_years_total=100.0,
+                            precision=1.0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BANK_SCENARIOS))
+def test_batched_banks_match_reference(name):
+    """``make_traces(batched=True)``: the bank drawn in shared waves from
+    ``default_rng([seed, n])`` is the reference's, trace by trace (times,
+    kinds, windows, silent events, horizon)."""
+    kw = dict(BANK_SCENARIOS[name], seed=3)
+    ref = RefScenario(**kw).make_traces(4, batched=True)
+    got = ScenarioSpec(**kw).make_traces(4, batched=True)
+    assert len(got) == len(ref) == 4
+    for g, r in zip(got, ref):
+        assert g.horizon == r.horizon
+        assert g.times.dtype == np.float64 and g.kinds.dtype == np.int8
+        assert (g.times == r.times).all() and (g.kinds == r.kinds).all()
+        assert (g.windows is None) == (r.windows is None)
+        if r.windows is not None:
+            assert (g.windows == r.windows).all()
+    assert sum(r.times.size for r in ref) > 10
+    if name == "window_silent":
+        assert sum(r.n_silent for r in ref) > 0
+
+
+@pytest.mark.parametrize("model", ["oracle", "lead_time", "drifting",
+                                   "bursty"])
+def test_predict_bank_matches_reference(model):
+    """Each predictor model's ``predict_bank`` (the oracle's vectorized
+    draw, the others' per-trace default) on one fault bank."""
+    from repro.core.traces import Weibull as RefWeibull
+    from repro.core.traces import superposed_trace_bank as ref_bank
+    from repro.predictors import build_predictor as ref_build
+    from repro_torch.core.traces import Weibull, superposed_trace_bank
+    from repro_torch.predictors import build_predictor
+    faults = superposed_trace_bank(Weibull(0.7, 5e7), 512, 2e7,
+                                   np.random.default_rng(9), 3)
+    ref_faults = ref_bank(RefWeibull(0.7, 5e7), 512, 2e7,
+                          np.random.default_rng(9), 3)
+    for f, rf in zip(faults, ref_faults):
+        assert (f == rf).all()
+    got = build_predictor(model, 0.8, 0.6).predict_bank(
+        faults, mu=1e5, horizon=2e7, rng=np.random.default_rng(4),
+        false_dist=Weibull(0.7, 1.0))
+    want = ref_build(model, 0.8, 0.6).predict_bank(
+        ref_faults, mu=1e5, horizon=2e7, rng=np.random.default_rng(4),
+        false_dist=RefWeibull(0.7, 1.0))
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        assert (g.kinds == w.kinds).all()
+        assert (g.false_times == w.false_times).all()
+        for a, b in ((g.true_windows, w.true_windows),
+                     (g.false_windows, w.false_windows)):
+            assert (a is None) == (b is None)
+            if b is not None:
+                assert (a == b).all()
