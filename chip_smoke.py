@@ -109,6 +109,30 @@ result):
                at its quick size (5 traces): the dynamic rows through the
                oracle (``period == "dynamic"``), the static ones through
                the kernel.
+6e. observability, fleet and two-level - (a) attribute_batch on phase
+               4's study pass (5,200 lanes) and phase 5's 65,536-lane
+               chunk, both from lane_loop_kernel: the buckets sum ``==``
+               to the makespan on every lane, the CUDA buckets ``==`` the
+               CPU's on the lanes those phases rerun on the CPU, and the
+               mean measured fraction of every bucket printed beside
+               ``expected_fractions`` (RFO, OptimalPrediction and
+               BestPeriod(RFO) held to ``tests/test_obs.py:220-266``'s
+               bounds); (b) ``record_run`` replays 12 study lanes through
+               the oracle: every field ``==`` the kernel's lane, the event
+               counts ``==`` the counters, the buckets ``==`` (a)'s; (c)
+               ``benchmarks/obs_metrics.py`` at its size: every field but
+               wall_s ``==`` its record in ``suites/baselines/quick.json``,
+               and its Perfetto JSON written, read back and checked; (d)
+               ``benchmarks/fleet_sweep.py`` at its quick size ``==`` its
+               record and its four claims, then at its full size (25
+               traces) with the suite's model-vs-simulator bound and the
+               0.5 period ratio, both tenants' measured outages and the
+               twins' contention printed (the JAX package's own numbers
+               break the other two claims there: ROADMAP Queue C);
+               (e) 1-job fleets ``==`` the oracle field for field and
+               ``==`` the kernel's lanes on the study's first 8 traces; (f)
+               ``benchmarks/multilevel.py`` at its full size (30 traces),
+               the table and its claim.  Each part's seconds printed.
 7. ckpt kernels - quantize_delta / dequantize_delta kernels ``==`` their
                plain versions (q, scales, restored bits) at 123, 256,
                1000 x 37 and 4096 x 16 elements in fp32 and bf16, with a
@@ -253,15 +277,19 @@ def _bits_equal(a, b) -> bool:
     return bool(torch.equal(a, b))
 
 
+def _smi() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+
+
 def phase_device() -> dict:
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True).stdout.strip().splitlines()[0]
-    log(smi)
+    log(_smi())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -584,7 +612,7 @@ def phase_main(study: dict) -> dict:
     import numpy as np
     import torch
     from repro_torch.core.batch import simulate_batch
-    from repro_torch.experiments import best_means, candidate_makespans
+    from repro_torch.experiments import best_means, candidate_results
     from repro_torch.kernels.event_step import event_step
     from repro_torch.kernels.lane_loop import lane_loop
     from repro_torch.obs.metrics import MetricsRegistry, set_registry
@@ -596,8 +624,9 @@ def phase_main(study: dict) -> dict:
     lane_loop.launches = 0
     event_step.launches = 0
     t0 = time.perf_counter()
-    ms = candidate_makespans(traces, plat, sc.time_base, sc.cp, unique,
-                             seed=sc.seed)
+    result = candidate_results(traces, plat, sc.time_base, sc.cp, unique,
+                               seed=sc.seed)
+    ms = result.makespan
     means = best_means(ms, study["rows"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -637,13 +666,13 @@ def phase_main(study: dict) -> dict:
     # The timed pass itself against the CPU: its first SUB_TRACES traces
     # of every candidate, rerun over the same 200-trace bank.
     t0 = time.perf_counter()
-    on_cpu = candidate_makespans(traces, plat, sc.time_base, sc.cp, unique,
-                                 seed=sc.seed,
-                                 trace_indices=range(SUB_TRACES),
-                                 device="cpu")
+    cpu_result = candidate_results(traces, plat, sc.time_base, sc.cp,
+                                   unique, seed=sc.seed,
+                                   trace_indices=range(SUB_TRACES),
+                                   device="cpu")
     t_cpu = time.perf_counter() - t0
     if not (ms[:, :SUB_TRACES].view(np.int64)
-            == on_cpu.view(np.int64)).all():
+            == cpu_result.makespan.view(np.int64)).all():
         raise AssertionError("timed study pass: CUDA != CPU on its first "
                              f"{SUB_TRACES} traces")
     log(f"[main] timed pass, {len(unique)} candidates x first {SUB_TRACES} "
@@ -665,14 +694,17 @@ def phase_main(study: dict) -> dict:
     _assert_same(on_gpu, on_cpu, "CUDA vs CPU sub-grid")
     log(f"[main] sub-grid {len(periods)} x {len(sub)}: CUDA == CPU on every "
         f"BatchResult field (cuda {t_gpu:.2f} s, cpu {t_cpu:.2f} s)")
-    return {"launches": launches, "wall_s": wall, "iterations": iters}
+    return {"launches": launches, "wall_s": wall, "iterations": iters,
+            "result": result, "cpu_result": cpu_result}
 
 
-def phase_scale() -> None:
-    """65,536 lanes as one chunk on the engine_perf.py big-lane setup."""
+def phase_scale() -> dict:
+    """65,536 lanes as one chunk on the engine_perf.py big-lane setup;
+    returns the chunk's results and its CPU rerun's (phase 6e reads
+    them)."""
     import numpy as np
     import torch
-    from repro_torch.core.batch import simulate_lanes
+    from repro_torch.core.batch import lane_results
     from repro_torch.core.simulator import ThresholdTrust
     from repro_torch.core.traces import Exponential, make_event_trace
     from repro_torch.core.waste import Platform
@@ -682,8 +714,8 @@ def phase_scale() -> None:
                              np.random.default_rng(s)) for s in range(64)]
     idx = np.arange(BIG_LANES) % len(bank)
 
-    def run(lanes: np.ndarray, device=None) -> np.ndarray:
-        return simulate_lanes(
+    def run(lanes: np.ndarray, device=None):
+        return lane_results(
             bank, lp, 50000.0, cp=30.0, trace_indices=idx[lanes],
             periods=np.full(lanes.size, 1200.0),
             trusts=[ThresholdTrust(100.0)] * lanes.size,
@@ -697,14 +729,15 @@ def phase_scale() -> None:
     reg = MetricsRegistry()
     prev = set_registry(reg)
     t0 = time.perf_counter()
-    ms = run(everything)
+    result = run(everything)
     wall = time.perf_counter() - t0
     set_registry(prev)
+    ms = result.makespan[0]
     if not (np.isfinite(ms).all() and (ms > 50000.0).all()):
         raise AssertionError("scale run: makespans not finite above "
                              "time_base")
-    cpu = run(everything[:64], device="cpu")
-    if not (cpu == ms[:64]).all():
+    cpu_result = run(everything[:64], device="cpu")
+    if not (cpu_result.makespan[0] == ms[:64]).all():
         raise AssertionError("scale run: CUDA != CPU on the first 64 lanes")
     log(f"[scale] {BIG_LANES} lanes in one chunk: {wall:.4f} s, "
         f"{BIG_LANES / wall:.1f} lanes/s, "
@@ -734,6 +767,7 @@ def phase_scale() -> None:
         f"({sum(r[2] for r in rows) / max(iters, 1):.1f} per iteration)")
     for dev_us, key, count in sorted(rows, reverse=True)[:8]:
         log(f"[profile]   {dev_us / 1e3:10.3f} ms  {count:7d}x  {key[:70]}")
+    return {"result": result, "cpu_result": cpu_result}
 
 
 def _device_rows(prof) -> list[tuple[float, str, int]]:
@@ -1472,7 +1506,7 @@ def _record_routes():
     """Count the lanes the runner hands the lane engine and the pairs it
     hands the scalar oracle.  Returns the counts and a restore function."""
     import repro_torch.experiments.runner as runner
-    real_lanes, real_pair = runner.simulate_lanes, runner._simulate_pair
+    real_lanes, real_pair = runner.lane_results, runner._simulate_pair
     counts = {"lanes": 0, "oracle": 0}
 
     def lanes(*args, **kw):
@@ -1483,10 +1517,10 @@ def _record_routes():
         counts["oracle"] += 1
         return real_pair(*args, **kw)
 
-    runner.simulate_lanes, runner._simulate_pair = lanes, pair
+    runner.lane_results, runner._simulate_pair = lanes, pair
 
     def restore() -> None:
-        runner.simulate_lanes, runner._simulate_pair = real_lanes, real_pair
+        runner.lane_results, runner._simulate_pair = real_lanes, real_pair
     return counts, restore
 
 
@@ -1846,6 +1880,624 @@ def phase_experiments() -> dict:
     log(f"[experiments] phase {time.perf_counter() - t_start:.1f} s")
     return {"launches": launches, "cells": cells, "max_abs_err": err,
             "cuda_rows": cuda_rows}
+
+
+# -- 6e. observability, fleet and two-level -----------------------------------
+
+OBS_RECORD = "r8a5a94055adfca2d8bae"    # obs_metrics in suites/baselines/quick.json
+FLEET_RECORD = "raee798c647ad4e79c83a"  # fleet_sweep (quick) in the same file
+FLEET_QUICK, FLEET_FULL = 5, 25         # benchmarks/fleet_sweep.py:63
+FLEET_MU_IND = 3650.0 * 86400.0         # fleet_sweep.py:40: 10 years a chip
+FLEET_TRACK = (0.9, 1.1)                # suites/quick.yaml:137
+TWO_LEVEL_TRACES = 30                   # benchmarks/multilevel.py:37, full
+REPLAY_TRACES = 4                       # (b): study traces per strategy
+DEGENERACY_TRACES = 8                   # (e): study traces per strategy
+
+
+def _quick_record(record_id: str) -> dict:
+    with open(ROOT / "suites" / "baselines" / "quick.json") as fh:
+        return json.load(fh)["records"][record_id]
+
+
+def obs_metrics_payload() -> tuple[dict, dict]:
+    """benchmarks/obs_metrics.py:17-70 through the port: one traced run of
+    the prediction cell, attributed, and its two traces as a contended
+    fleet.  Returns the payload as the suite runner records it (with the
+    ``metrics`` counters of a registry of its own) and the fleet's
+    Perfetto trace object."""
+    import numpy as np
+    from repro_torch.core.simulator import simulate
+    from repro_torch.experiments import ScenarioSpec, StrategySpec
+    from repro_torch.fleet.sim import FleetJobInput, simulate_fleet
+    from repro_torch.obs import (MetricsRegistry, RecordingSink,
+                                 attribute_fleet_job, attribute_result,
+                                 fleet_to_perfetto, set_registry)
+    reg = MetricsRegistry()
+    prev = set_registry(reg)
+    try:
+        t0 = time.perf_counter()
+        scenario = ScenarioSpec(n=2 ** 16, c=600.0, d=60.0, r=600.0,
+                                n_traces=2, time_base_years_total=2000.0,
+                                seed=5)
+        strat = StrategySpec("optimal_prediction").build(scenario)
+        traces = scenario.make_traces()
+        seeds = [scenario.seed + 7919 * i for i in range(len(traces))]
+        sink = RecordingSink()
+        res = simulate(traces[0], scenario.platform, scenario.time_base,
+                       strat.period, cp=scenario.cp, trust=strat.trust,
+                       rng=np.random.default_rng(seeds[0]), sink=sink)
+        att = attribute_result(res)
+        if att.total() != res.makespan:
+            raise AssertionError("obs_metrics: bucket closure broke")
+        counts = sink.counts()
+        single = dict(att.buckets())
+        single.update(
+            makespan=res.makespan,
+            n_proactive_ckpts=res.n_proactive_ckpts,
+            n_rollbacks=res.n_rollbacks,
+            n_events=len(sink),
+            n_fault_events=counts.get("fault", 0),
+            n_trust_events=counts.get("trust", 0),
+            sum_exact=int(att.total() == res.makespan))
+        sinks = [RecordingSink() for _ in traces]
+        fleet = simulate_fleet(
+            [FleetJobInput(trace=tr, platform=scenario.platform,
+                           time_base=scenario.time_base,
+                           period=strat.period, cp=scenario.cp,
+                           trust=strat.trust,
+                           rng=np.random.default_rng(seeds[i]),
+                           name=f"job{i}", sink=sinks[i])
+             for i, tr in enumerate(traces)],
+            storage_streams=1, repair_slots=1)
+        fatts = [attribute_fleet_job(j) for j in fleet.jobs]
+        trace_json = fleet_to_perfetto(
+            [(j.name, s.events) for j, s in zip(fleet.jobs, sinks)])
+        fleet_out = {
+            "n_jobs": len(fleet.jobs),
+            "wait_total": sum(a.wait for a in fatts),
+            "makespan": fleet.makespan,
+            "n_trace_events": len(trace_json["traceEvents"]),
+            "sum_exact": int(all(a.total() == j.sim.makespan
+                                 for a, j in zip(fatts, fleet.jobs))),
+        }
+        payload = {"single": single, "fleet": fleet_out,
+                   "wall_s": time.perf_counter() - t0}
+    finally:
+        set_registry(prev)
+    payload["metrics"] = dict(reg.counters)
+    return payload, trace_json
+
+
+def _fleet_jobs(n_traces: int) -> tuple:
+    """fleet_sweep.py:44-48: a 1B model on 256 devices beside a 405B model
+    on 8,192, sized from the port's model zoo, 20 days each."""
+    from repro_torch.fleet import job_from_model
+    return (job_from_model("llama3.2-1b", n_devices=256, n_traces=n_traces,
+                           seed=0, mu_ind=FLEET_MU_IND, time_base_days=20.0),
+            job_from_model("llama3-405b", n_devices=8192, n_traces=n_traces,
+                           seed=1, mu_ind=FLEET_MU_IND, time_base_days=20.0))
+
+
+def _fleet_twins(n_traces: int) -> tuple:
+    """fleet_sweep.py:51-55: twin 405B tenants for the staggering cell."""
+    from repro_torch.fleet import job_from_model
+    return tuple(job_from_model("llama3-405b", n_devices=8192,
+                                n_traces=n_traces, seed=s,
+                                mu_ind=FLEET_MU_IND, time_base_days=20.0,
+                                name=f"tenant{s}")
+                 for s in (1, 2))
+
+
+def fleet_sweep_payload(n_traces: int) -> tuple[dict, dict]:
+    """benchmarks/fleet_sweep.py:61-134 through the port, its claims left
+    to :func:`fleet_sweep_claims`: the payload as the suite runner records
+    it (both objectives' rows, ``model_vs_sim`` by the script's
+    operations, ``contention_s``, the ``metrics`` counters) and the two
+    objectives' tables."""
+    from repro_torch.fleet import FleetSpec, OutageWeights, evaluate_fleet
+    from repro_torch.obs import MetricsRegistry, set_registry
+    # fleet_sweep.py:37: mostly-concurrent checkpoints, full-outage replay.
+    weights = OutageWeights(ckpt=0.25, prockpt=0.25, replay=1.0)
+    reg = MetricsRegistry()
+    prev = set_registry(reg)
+    try:
+        jobs = _fleet_jobs(n_traces)
+        tables = {obj: evaluate_fleet(FleetSpec(
+            jobs=jobs, objective=obj, outage=weights, name=f"hetero-{obj}"))
+            for obj in ("waste", "availability")}
+        out: dict = {"rows": {obj: t.rows for obj, t in tables.items()}}
+        rows = {r["job"]: r for r in tables["availability"].rows}
+        big = rows["llama3-405b"]
+        rel = big["expected_objective"] / big["unavailability"] - 1.0
+        small = rows["llama3.2-1b"]
+        out["model_vs_sim"] = {
+            "llama3-405b": 1.0 + rel,
+            "llama3.2-1b_unasserted":
+                small["expected_objective"] / small["unavailability"],
+        }
+        cont = {}
+        for stagger in (False, True):
+            t = evaluate_fleet(FleetSpec(
+                jobs=_fleet_twins(n_traces), objective="availability",
+                outage=weights, storage_streams=1, stagger=stagger,
+                name=f"twins-stagger={stagger}"))
+            cont[stagger] = sum(r["contention_ckpt_s"]
+                                + r["contention_prockpt_s"] for r in t.rows)
+        out["contention_s"] = {"synchronized": cont[False],
+                               "staggered": cont[True]}
+    finally:
+        set_registry(prev)
+    out["metrics"] = dict(reg.counters)
+    return out, tables
+
+
+def fleet_sweep_claims(payload: dict, *, all_claims: bool) -> list[str]:
+    """fleet_sweep.py's claims on a payload, raising on a failure: the
+    sqrt(phi_c/rho) = 0.5 period ratio on every tenant and the suite's
+    bound on the 405B tenant's model/simulator ratio
+    (``suites/quick.yaml:137``); with ``all_claims`` also the script's
+    other two, the availability plan's lower measured outage on every
+    tenant (``fleet_sweep.py:87``) and staggering cutting contention by
+    more than 10x (``:125``).  The JAX package's own numbers break those
+    two at the full size (ROADMAP Queue C), so there they are printed.
+    Returns a line for each claim."""
+    rows = {obj: {r["job"]: r for r in rs}
+            for obj, rs in payload["rows"].items()}
+    said = []
+    for job in ("llama3.2-1b", "llama3-405b"):
+        t_w = rows["waste"][job]["period"]
+        t_a = rows["availability"][job]["period"]
+        u_w = rows["waste"][job]["unavailability"]
+        u_a = rows["availability"][job]["unavailability"]
+        if not abs(t_a / t_w - 0.5) < 5e-4:
+            raise AssertionError(f"fleet_sweep {job}: period ratio "
+                                 f"{t_a / t_w!r}, not 0.5")
+        if all_claims and not u_a < u_w:
+            raise AssertionError(f"fleet_sweep {job}: the availability "
+                                 f"plan measures {u_a!r} >= {u_w!r}")
+        said.append(f"{job}: T {t_w!r} -> {t_a!r} s (ratio {t_a / t_w!r}), "
+                    f"measured U {u_w!r} (waste plan) -> {u_a!r} "
+                    f"(availability plan)"
+                    + ("" if all_claims else ", order not held"))
+    ratio = payload["model_vs_sim"]["llama3-405b"]
+    lo, hi = FLEET_TRACK
+    if not lo <= ratio <= hi:
+        raise AssertionError(f"fleet_sweep: 405B model/sim {ratio!r} "
+                             f"outside [{lo}, {hi}]")
+    said.append(f"405B model/sim {ratio!r} in [{lo}, {hi}] (1B, quoted: "
+                f"{payload['model_vs_sim']['llama3.2-1b_unasserted']!r})")
+    cont = payload["contention_s"]
+    cut = cont["synchronized"] / cont["staggered"]
+    if all_claims and not cont["staggered"] < 0.1 * cont["synchronized"]:
+        raise AssertionError(f"fleet_sweep: staggering left {cont}")
+    said.append(f"twin contention {cont['synchronized']!r} s synchronized "
+                f"-> {cont['staggered']!r} s staggered ({cut!r}x"
+                + (")" if all_claims else ", > 10x not held)"))
+    return said
+
+
+def two_level_rows(n_traces: int) -> list[dict]:
+    """benchmarks/multilevel.py:26-81 through the port: single-level RFO
+    against the optimal two-level schedule over N x phi, each cell's
+    optimum simulated on ``n_traces`` two-level streams; ``w1`` and ``w2``
+    are the unrounded wastes the script compares."""
+    import numpy as np
+    from repro_torch.core.multilevel import (TwoLevelPlatform,
+                                             optimal_two_level,
+                                             simulate_two_level,
+                                             two_level_stream)
+    from repro_torch.core.waste import t_rfo, waste
+    from repro_torch.experiments import (DistributionSpec, ExperimentSpec,
+                                         ScenarioSpec, SweepSpec)
+    exp = ExperimentSpec(
+        name="multilevel",
+        scenario=ScenarioSpec(dist=DistributionSpec("exponential"),
+                              c=600.0, d=60.0, r=600.0,
+                              extras={"phi": 0.6, "c1": 30.0, "r1": 30.0},
+                              n_traces=n_traces),
+        sweep=SweepSpec(axes={"n": [2 ** 16, 2 ** 18, 2 ** 19],
+                              "extras.phi": [0.6, 0.8]},
+                        names={"extras.phi": "phi"}),
+        strategies=(), metrics=())
+    rows = []
+    for _, cell in exp.cells():
+        phi = cell.extras["phi"]
+        p1 = cell.platform
+        p2 = TwoLevelPlatform(mu=cell.mu, phi=phi, c1=cell.extras["c1"],
+                              c2=cell.c, r1=cell.extras["r1"], r2=cell.r,
+                              d=cell.d)
+        w1 = waste(t_rfo(p1), p1)
+        t1, k, w2 = optimal_two_level(p2)
+        sims = []
+        for seed in range(cell.n_traces):
+            faults, soft = two_level_stream(
+                p2, 5.0 * cell.time_base, np.random.default_rng(seed))
+            sims.append(simulate_two_level(
+                faults, soft, p2, cell.time_base, t1, k).waste)
+        rows.append({"N": f"2^{cell.n.bit_length() - 1}", "phi": phi,
+                     "waste_single": round(w1, 4),
+                     "waste_two_level": round(w2, 4),
+                     "k_star": k, "t1_star": round(t1, 0),
+                     "waste_sim": round(float(np.mean(sims)), 4),
+                     "gain_pct": round(100 * (1 - w2 / w1), 1),
+                     "w1": w1, "w2": w2})
+    return rows
+
+
+def check_perfetto(trace: dict, jobs: list[str]) -> int:
+    """A Perfetto trace object is well formed: each job a named thread
+    track; every slice of a kind with a non-negative duration and after
+    the last slice of that kind on its track ended; instants scoped.
+    Returns the number of slices."""
+    evs = trace["traceEvents"]
+    names = {e["tid"]: e["args"]["name"] for e in evs
+             if e["ph"] == "M" and e["name"] == "thread_name"}
+    if sorted(names.values()) != sorted(jobs):
+        raise AssertionError(f"Perfetto tracks {names} != jobs {jobs}")
+    ends: dict = {}
+    n = 0
+    for e in evs:
+        if e["ph"] == "X":
+            key = (e["tid"], e["name"])
+            if not (e["dur"] >= 0.0 and e["ts"] >= ends.get(key, 0.0)):
+                raise AssertionError(f"Perfetto slice {e} overlaps the last "
+                                     f"{e['name']} on its track")
+            ends[key] = e["ts"] + e["dur"]
+            n += 1
+        elif e["ph"] == "i" and e.get("s") != "t":
+            raise AssertionError(f"Perfetto instant {e} is not "
+                                 f"thread-scoped")
+        elif e["ph"] not in ("X", "i", "M"):
+            raise AssertionError(f"Perfetto event {e}")
+    return n
+
+
+def _bucket_means(buckets: dict, makespan, ci) -> dict:
+    """Each bucket's measured fraction of the makespan, averaged over
+    candidate ``ci``'s traces."""
+    import numpy as np
+    return {name: float(np.mean(b[ci] / makespan[ci]))
+            for name, b in buckets.items()}
+
+
+def _attribute(result, what: str) -> tuple[dict, object]:
+    """attribute_lanes on a BatchResult: the buckets sum ``==`` to the
+    makespan on every lane the closure reaches, and within one ulp of it
+    on the others (where attribute_batch raises, as the JAX package's
+    does); no bucket is negative.  Returns the buckets and the mask."""
+    import numpy as np
+    from repro_torch.obs import BUCKETS, attribute_lanes
+    b, closed = attribute_lanes(result)
+    tot = b["work"].copy()
+    for name in BUCKETS[1:]:
+        tot = tot + b[name]
+    mk = result.makespan
+    if not (tot[closed] == mk[closed]).all():
+        raise AssertionError(f"{what}: a closed lane's buckets do not sum "
+                             f"to its makespan")
+    if not (np.abs(tot - mk) <= np.spacing(mk)).all():
+        raise AssertionError(f"{what}: a lane's buckets sum more than one "
+                             f"ulp from its makespan")
+    if any((b[name] < 0.0).any() for name in BUCKETS):
+        raise AssertionError(f"{what}: a negative bucket")
+    log(f"[obs] (a) {what}: {mk.size} lanes, sum(buckets) == makespan on "
+        f"{int(closed.sum())}; on {int((~closed).sum())} the closure's fold "
+        f"cannot reach the makespan (one ulp either side; attribute_batch "
+        f"raises there, as the JAX package's does)")
+    return b, closed
+
+
+def _same_buckets(cuda: tuple, cpu: tuple, cols, what: str) -> None:
+    import numpy as np
+    (cb, cclosed), (pb, pclosed) = cuda, cpu
+    if not (cclosed[cols] == pclosed).all():
+        raise AssertionError(f"{what}: CUDA lanes close where the CPU's "
+                             f"do not")
+    for name, b in pb.items():
+        if not (cb[name][cols].view(np.int64) == b.view(np.int64)).all():
+            raise AssertionError(f"{what}: CUDA bucket {name} != the CPU's")
+    log(f"[obs] (a) {what}: CUDA buckets == CPU buckets on the "
+        f"{pb['work'].size} lanes rerun on the CPU")
+
+
+def _reconcile(means: dict, exp: dict, t: float, platform, with_pred: bool,
+               what: str) -> None:
+    """tests/test_obs.py:220-266: the expected fractions' own checks, then
+    each term's measured mean within max(0.02, 1.5 x expected) and work
+    within 0.05."""
+    import math
+    from repro_torch.core.waste import waste
+    from repro_torch.obs import expected_fractions
+    ok = math.isclose(sum(exp.values()), 1.0, rel_tol=1e-12)
+    if with_pred:
+        terms = ("ckpt", "downtime", "recovery", "proactive_ckpt", "re_exec")
+        ok = ok and exp["proactive_ckpt"] > 0.0 and exp["re_exec"] \
+            < expected_fractions(t, platform)["re_exec"]
+    else:
+        terms = ("ckpt", "downtime", "recovery", "re_exec")
+        ok = ok and exp["ckpt"] == platform.c / t \
+            and exp["proactive_ckpt"] == 0.0 \
+            and math.isclose(1.0 - exp["work"], waste(t, platform),
+                             rel_tol=0.05)
+    if not ok:
+        raise AssertionError(f"{what}: expected fractions {exp}")
+    for b in terms:
+        if not abs(means[b] - exp[b]) < max(0.02, 1.5 * exp[b]):
+            raise AssertionError(f"{what} {b}: measured {means[b]!r} vs "
+                                 f"expected {exp[b]!r}")
+    if not abs(means["work"] - exp["work"]) < 0.05:
+        raise AssertionError(f"{what} work: measured {means['work']!r} vs "
+                             f"expected {exp['work']!r}")
+
+
+def _log_fractions(what: str, means: dict, exp: dict) -> None:
+    from repro_torch.obs import BUCKETS
+    log(f"[obs] (a) {what}; bucket: mean measured fraction / expected")
+    for name in BUCKETS:
+        log(f"[obs]         {name:15s} {means[name]!r} / {exp[name]!r}")
+
+
+def _obs_attribution(study: dict, main_run: dict, scale: dict) -> tuple:
+    """(a): the study pass's and the scale chunk's BatchResults from the
+    card, attributed; returns the study pass's buckets and closed lanes."""
+    import numpy as np
+    from repro_torch.core.prediction import PredictedPlatform, Predictor
+    from repro_torch.core.waste import Platform
+    from repro_torch.experiments import best_means
+    from repro_torch.obs import expected_fractions
+    sc, rows, unique = study["sc"], study["rows"], study["unique"]
+    res = main_run["result"]
+    study_att = _attribute(res, f"study pass ({len(unique)} candidates x "
+                                f"{N_TRACES} traces)")
+    _same_buckets(study_att,
+                  _attribute(main_run["cpu_result"], "study pass, CPU"),
+                  np.s_[:, :SUB_TRACES], "study pass")
+    b = study_att[0]
+    per = best_means(res.makespan, [[j] for j in rows[2]])
+    best = rows[2][int(np.argmin(per))]
+    for name, ci, with_pred in (("RFO", rows[0][0], False),
+                                ("OptimalPrediction", rows[1][0], True),
+                                ("BestPeriod(RFO)", best, False)):
+        t = float(unique[ci].period)
+        exp = expected_fractions(t, sc.platform, sc.pp if with_pred else None)
+        means = _bucket_means(b, res.makespan, ci)
+        _log_fractions(f"{name} at T = {t!r} s over {N_TRACES} traces",
+                       means, exp)
+        _reconcile(means, exp, t, sc.platform, with_pred, name)
+    log("[obs] (a) RFO, OptimalPrediction and BestPeriod(RFO) reconcile "
+        "with expected_fractions at tests/test_obs.py:220-266's bounds")
+
+    sres = scale["result"]
+    scale_att = _attribute(sres, f"scale chunk ({BIG_LANES} lanes)")
+    _same_buckets(scale_att,
+                  _attribute(scale["cpu_result"], "scale chunk, CPU"),
+                  np.s_[:, :64], "scale chunk")
+    lp = Platform(mu=2500.0, c=60.0, d=10.0, r=30.0)
+    _log_fractions(
+        "scale chunk at T = 1200 s (trust threshold 100 s, 300 s windows, "
+        "T/2mu = 0.24: beyond first order, printed and not held)",
+        _bucket_means(scale_att[0], sres.makespan, 0),
+        expected_fractions(1200.0, lp,
+                           PredictedPlatform(lp, Predictor(0.7, 0.6), 30.0)))
+    return study_att
+
+
+def _obs_replay(study: dict, main_run: dict, attributed: tuple) -> None:
+    """(b): record_run replays study lanes through the port's oracle: each
+    replay ``==`` the kernel's lane, its event counts ``==`` the lane's
+    counters (tests/test_obs.py:137-152), its buckets ``==`` (a)'s where
+    the closure reaches the makespan, and attribute_result raises where
+    (a) found it does not."""
+    import numpy as np
+    from repro_torch.obs import attribute_result, record_run
+    sc, rows, unique, traces = (study["sc"], study["rows"], study["unique"],
+                                study["traces"])
+    res = main_run["result"]
+    buckets, closed = attributed
+    n_events, kinds, n_open = 0, set(), 0
+    for ci in (rows[0][0], rows[1][0], rows[2][-1]):
+        strat = unique[ci]
+        for ti in range(REPLAY_TRACES):
+            got, sink = record_run(
+                traces[ti], sc.platform, sc.time_base, strat.period,
+                cp=sc.cp, trust=strat.trust,
+                inexact_window=strat.inexact_window,
+                rng=np.random.default_rng(sc.seed + 7919 * ti))
+            where = f"replay of lane ({ci}, {ti})"
+            if dataclasses.asdict(got) != dataclasses.asdict(
+                    res.result(ci, ti)):
+                raise AssertionError(f"{where} != the kernel's lane")
+            counts = sink.counts()
+            want = {"fault": got.n_faults_hit, "rollback": got.n_rollbacks,
+                    "prockpt_end": got.n_proactive_ckpts,
+                    "ckpt_end": got.n_periodic_ckpts,
+                    "prediction": got.n_predictions,
+                    "re_exec": got.n_rollbacks, "replan": got.n_replans}
+            if any(counts.get(k, 0) != v for k, v in want.items()):
+                raise AssertionError(f"{where}: event counts {counts} != "
+                                     f"the counters {want}")
+            if not closed[ci, ti]:
+                try:
+                    attribute_result(got)
+                except ArithmeticError:
+                    n_open += 1
+                else:
+                    raise AssertionError(f"{where}: the scalar closure "
+                                         f"closed where the lanes' did not")
+            elif any(attribute_result(got).buckets()[k] != float(b[ci, ti])
+                     for k, b in buckets.items()):
+                raise AssertionError(f"{where}: buckets != attribute_batch's")
+            n_events += len(sink)
+            kinds |= set(counts)
+    periods = ", ".join(repr(float(unique[ci].period))
+                        for ci in (rows[0][0], rows[1][0], rows[2][-1]))
+    log(f"[obs] (b) record_run on {3 * REPLAY_TRACES} study lanes (RFO, "
+        f"OptimalPrediction and BestPeriod's last grid point, periods "
+        f"{periods} s, x the first {REPLAY_TRACES} traces): every "
+        f"SimResult field == the kernel's "
+        f"lane; {n_events} events of {len(kinds)} kinds, counts == the "
+        f"counters; buckets == attribute_lanes' ({n_open} lane(s) that do "
+        f"not close raise in attribute_result too)")
+
+
+def _obs_metrics(workdir: str) -> None:
+    """(c): obs_metrics at its size against its record; the Perfetto JSON
+    written, read back and checked."""
+    from repro_torch.obs import write_trace
+    payload, trace = obs_metrics_payload()
+    want = {k: v for k, v in _quick_record(OBS_RECORD)["payload"].items()
+            if k != "wall_s"}
+    got = {k: v for k, v in payload.items() if k != "wall_s"}
+    if got != want:
+        raise AssertionError(f"obs_metrics: {got} != the record {want}")
+    path = os.path.join(workdir, "obs_metrics_fleet.json")
+    write_trace(path, trace)
+    with open(path, encoding="utf-8") as fh:
+        loaded = json.load(fh)
+    if loaded != trace:
+        raise AssertionError("obs_metrics: the Perfetto JSON read back "
+                             "differs")
+    n = check_perfetto(loaded, ["job0", "job1"])
+    log(f"[obs] (c) obs_metrics: every field but wall_s == record "
+        f"{OBS_RECORD} (single: {payload['single']['n_events']} events, "
+        f"makespan {payload['single']['makespan']!r}; fleet wait "
+        f"{payload['fleet']['wait_total']!r} s; metrics "
+        f"{payload['metrics']}); wall_s {payload['wall_s']:.4f} s; "
+        f"Perfetto JSON {os.path.getsize(path)} bytes, "
+        f"{len(loaded['traceEvents'])} events, {n} slices, well formed")
+
+
+def _fleet_sweep() -> None:
+    """(d): fleet_sweep at its quick size against its record, then at its
+    full size with the suite's claim."""
+    quick, _ = fleet_sweep_payload(FLEET_QUICK)
+    rec = _quick_record(FLEET_RECORD)["payload"]
+    for key in ("rows", "contention_s", "model_vs_sim", "metrics"):
+        if quick[key] != rec[key]:
+            raise AssertionError(f"fleet_sweep quick {key}: {quick[key]} != "
+                                 f"the record's {rec[key]}")
+    said = fleet_sweep_claims(quick, all_claims=True)
+    log(f"[fleet] (d) fleet_sweep at {FLEET_QUICK} traces: rows, "
+        f"contention_s, model_vs_sim and metrics == record {FLEET_RECORD}; "
+        f"the script's claims hold: " + "; ".join(said))
+    full, tables = fleet_sweep_payload(FLEET_FULL)
+    for table in tables.values():
+        for line in table.format().splitlines():
+            log(f"[fleet]   {line}")
+    said = fleet_sweep_claims(full, all_claims=False)
+    log(f"[fleet] (d) fleet_sweep at {FLEET_FULL} traces: " + "; ".join(said))
+    rows = {obj: {r["job"]: r for r in rs}
+            for obj, rs in full["rows"].items()}
+    pairs = ", ".join(
+        f"{job} {rows['waste'][job]['unavailability']!r} (waste plan) / "
+        f"{rows['availability'][job]['unavailability']!r} (availability "
+        f"plan)" for job in ("llama3.2-1b", "llama3-405b"))
+    log(f"[fleet] (d) measured weighted outage: {pairs}; the outage order "
+        f"and staggering's 10x are not held at this size, where the JAX "
+        f"package's own numbers break them (ROADMAP Queue C); fleet.faults "
+        f"{full['metrics'].get('fleet.faults', 0)} (quick: "
+        f"{quick['metrics'].get('fleet.faults', 0)})")
+
+
+def _fleet_degeneracy(study: dict, main_run: dict) -> None:
+    """(e): 1-job fleets == the oracle's simulate on the study's first
+    traces, field for field, and == the kernel's lanes; then one coupled
+    fleet of those jobs on one storage stream (benchmarks/engine_perf.py:
+    120-160)."""
+    import numpy as np
+    from repro_torch.core.simulator import simulate
+    from repro_torch.fleet.sim import FleetJobInput, simulate_fleet
+    sc, rows, unique, traces = (study["sc"], study["rows"], study["unique"],
+                                study["traces"])
+    res = main_run["result"]
+    for name, ci in (("RFO", rows[0][0]), ("OptimalPrediction", rows[1][0])):
+        strat = unique[ci]
+
+        def inp(ti: int) -> FleetJobInput:
+            return FleetJobInput(
+                trace=traces[ti], platform=sc.platform,
+                time_base=sc.time_base, period=strat.period, cp=sc.cp,
+                trust=strat.trust, inexact_window=strat.inexact_window,
+                rng=np.random.default_rng(sc.seed + 7919 * ti))
+
+        t0 = time.perf_counter()
+        oracle = [simulate(traces[ti], sc.platform, sc.time_base,
+                           strat.period, cp=sc.cp, trust=strat.trust,
+                           inexact_window=strat.inexact_window,
+                           rng=np.random.default_rng(sc.seed + 7919 * ti))
+                  for ti in range(DEGENERACY_TRACES)]
+        t_oracle = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        solo = [simulate_fleet([inp(ti)]).jobs[0]
+                for ti in range(DEGENERACY_TRACES)]
+        t_solo = time.perf_counter() - t0
+        for ti, (job, want) in enumerate(zip(solo, oracle)):
+            if dataclasses.asdict(job.sim) != dataclasses.asdict(want) or (
+                    job.time_contention_ckpt, job.time_contention_prockpt,
+                    job.time_repair_wait) != (0.0, 0.0, 0.0):
+                raise AssertionError(f"{name} trace {ti}: the 1-job fleet "
+                                     f"!= simulate")
+            if job.sim.makespan != res.makespan[ci, ti]:
+                raise AssertionError(f"{name} trace {ti}: the 1-job fleet "
+                                     f"!= the kernel's lane")
+        t0 = time.perf_counter()
+        coupled = simulate_fleet([inp(ti) for ti in range(DEGENERACY_TRACES)],
+                                 storage_streams=1)
+        t_coupled = time.perf_counter() - t0
+        cont = sum(j.time_contention_ckpt + j.time_contention_prockpt
+                   for j in coupled.jobs)
+        log(f"[fleet] (e) {name}: {DEGENERACY_TRACES} 1-job fleets == "
+            f"simulate on every SimResult field and == the kernel's lanes; "
+            f"oracle {t_oracle:.4f} s, 1-job fleets {t_solo:.4f} s "
+            f"({t_solo / t_oracle:.2f}x); the {DEGENERACY_TRACES} jobs "
+            f"coupled on one storage stream {t_coupled:.4f} s, contention "
+            f"{cont!r} s, makespan {coupled.makespan!r} s")
+
+
+def _two_level() -> None:
+    """(f): benchmarks/multilevel.py at its full size, with its claim that
+    two-level checkpointing beats single-level RFO in every cell."""
+    rows = two_level_rows(TWO_LEVEL_TRACES)
+    log(f"[two-level] (f) {TWO_LEVEL_TRACES} traces a cell; | N | phi | "
+        f"single waste | two-level waste | k* | T1* | sim 2-level | gain % |")
+    for r in rows:
+        log(f"[two-level]   | {r['N']} | {r['phi']} | {r['w1']!r} | "
+            f"{r['w2']!r} | {r['k_star']} | {r['t1_star']} | "
+            f"{r['waste_sim']} | {r['gain_pct']} |")
+        if not r["w2"] < r["w1"]:
+            raise AssertionError(f"two-level: {r}")
+    log("[two-level] (f) two-level waste < single-level waste in every "
+        "cell (benchmarks/multilevel.py:77)")
+
+
+def phase_obs_fleet(study: dict, main_run: dict, scale: dict) -> None:
+    """6e: observability, the fleet and the two-level model on the card's
+    lanes and the port's host modules."""
+    smi = _smi()
+    t_start = time.perf_counter()
+    times = {}
+    t0 = time.perf_counter()
+    buckets = _obs_attribution(study, main_run, scale)
+    times["(a) attribution"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _obs_replay(study, main_run, buckets)
+    times["(b) replay"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_obs_") as workdir:
+        t0 = time.perf_counter()
+        _obs_metrics(workdir)
+        times["(c) obs_metrics"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _fleet_sweep()
+    times["(d) fleet_sweep"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _fleet_degeneracy(study, main_run)
+    times["(e) degeneracy"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _two_level()
+    times["(f) two-level"] = time.perf_counter() - t0
+    log(f"[obs-fleet] phase 6e on {smi}: "
+        + ", ".join(f"{k} {v:.4f} s" for k, v in times.items())
+        + f"; total {time.perf_counter() - t_start:.4f} s")
 
 
 # -- the fault-tolerant trainer's path (ckpt_delta kernels) -------------------
@@ -2912,7 +3564,7 @@ def _main(t_start: float, device: dict, children: list) -> int:
     loop_check = phase_lane_loop(study)
     adaptive = phase_adaptive(study)
     main_run = phase_main(study)
-    phase_scale()
+    scale = phase_scale()
     phase_timing(study["n_lanes"])
     loop_timing = phase_loop_timing(loop_check)
     log(f"[done] study phases {time.perf_counter() - t_start:.1f} s")
@@ -2920,6 +3572,7 @@ def _main(t_start: float, device: dict, children: list) -> int:
     phase_convergence()
     phase_overflow()
     experiments = phase_experiments()
+    phase_obs_fleet(study, main_run, scale)
     log(f"[done] simulation phases {time.perf_counter() - t_start:.1f} s")
     errs = {"quantize_delta": 0.0, "dequantize_delta": 0.0}
     phase_ckpt_kernels(errs)

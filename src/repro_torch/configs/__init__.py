@@ -1,45 +1,78 @@
-"""The port's model configurations.
+"""Architecture / shape / platform registry of the port.
 
-``REGISTRY`` holds the dense decoders the port runs; :func:`get` resolves
-an arch id.  The JAX package's other architectures need model code the
-port does not have yet, so asking for one raises ``KeyError`` naming the
-ROADMAP item that ports it.
+The port's own copy of ``repro/configs/__init__.py``: ``REGISTRY`` maps
+``--arch`` ids to :class:`ModelConfig`, ``EXTRAS`` holds the architectures
+beyond the assigned pool, and ``SHAPES`` maps shape ids to
+:class:`InputShape`.  :func:`get` resolves every architecture of the JAX
+package; ``pairs()`` enumerates the assigned (arch x shape) grid,
+honouring the documented skips (encoder-only archs have no decode step).
+
+Resolving a config does not mean the port runs its model:
+``models/transformer.py::check_supported`` raises for the families whose
+blocks are not ported yet, naming the ROADMAP item.  The
+fleet sizes jobs from any of them (``fleet/spec.py::job_from_model``).
 """
 
 from __future__ import annotations
 
 from .base import SHAPES, InputShape, ModelConfig, PlatformConfig
+from .extras import EXTRAS
+from .hubert_xlarge import CONFIG as HUBERT_XLARGE
+from .internlm2_20b import CONFIG as INTERNLM2_20B
+from .llama3_405b import CONFIG as LLAMA3_405B
 from .llama32_1b import CONFIG as LLAMA32_1B
+from .qwen2_moe_a27b import CONFIG as QWEN2_MOE_A27B
+from .qwen2_vl_72b import CONFIG as QWEN2_VL_72B
+from .qwen3_moe_235b_a22b import CONFIG as QWEN3_MOE_235B
+from .recurrentgemma_2b import CONFIG as RECURRENTGEMMA_2B
 from .tinyllama_11b import CONFIG as TINYLLAMA_11B
+from .xlstm_125m import CONFIG as XLSTM_125M
 
-__all__ = ["REGISTRY", "SHAPES", "get", "ModelConfig", "InputShape",
-           "PlatformConfig"]
+__all__ = ["REGISTRY", "EXTRAS", "SHAPES", "get", "pairs", "skip_reason",
+           "ModelConfig", "InputShape", "PlatformConfig"]
 
 REGISTRY: dict[str, ModelConfig] = {
-    cfg.name: cfg for cfg in (TINYLLAMA_11B, LLAMA32_1B)
-}
-
-# Architectures of the JAX package that wait for model code in the port.
-_PENDING = {
-    "llama3-405b": "ROADMAP Queue A item 10.1 (dense configs; at full "
-                   "width it needs item 13, sharding)",
-    "internlm2-20b": "ROADMAP Queue A item 10.1 (dense configs)",
-    "gemma2-9b": "ROADMAP Queue A item 10.1 (dense configs)",
-    "qwen3-moe-235b-a22b": "ROADMAP Queue A item 10.2 (MoE)",
-    "qwen2-moe-a2.7b": "ROADMAP Queue A item 10.2 (MoE)",
-    "mixtral-8x7b": "ROADMAP Queue A item 10.2 (MoE)",
-    "recurrentgemma-2b": "ROADMAP Queue A item 10.3 (RG-LRU)",
-    "xlstm-125m": "ROADMAP Queue A item 10.4 (xLSTM)",
-    "qwen2-vl-72b": "ROADMAP Queue A item 10.5 (M-RoPE VLM)",
-    "hubert-xlarge": "ROADMAP Queue A item 10.6 (encoder-only audio)",
+    cfg.name: cfg
+    for cfg in (
+        LLAMA3_405B,
+        INTERNLM2_20B,
+        QWEN3_MOE_235B,
+        QWEN2_MOE_A27B,
+        HUBERT_XLARGE,
+        TINYLLAMA_11B,
+        RECURRENTGEMMA_2B,
+        QWEN2_VL_72B,
+        LLAMA32_1B,
+        XLSTM_125M,
+    )
 }
 
 
 def get(name: str) -> ModelConfig:
-    """Resolve an arch id among the configs the port has."""
+    """Resolve an arch id: the assigned registry first, then extras."""
     if name in REGISTRY:
         return REGISTRY[name]
-    if name in _PENDING:
-        raise KeyError(f"arch {name!r} is not ported yet: "
-                       f"{_PENDING[name]}")
-    raise KeyError(f"unknown arch {name!r}; known: {sorted(REGISTRY)}")
+    if name in EXTRAS:
+        return EXTRAS[name]
+    raise KeyError(f"unknown arch {name!r}; known: "
+                   f"{sorted(REGISTRY) + sorted(EXTRAS)}")
+
+
+def skip_reason(cfg: ModelConfig, shape: InputShape) -> str | None:
+    """Why an (arch, shape) pair is skipped, or None if it runs.
+
+    Encoder-only architectures (hubert) have no decode step; this is the
+    only skip.
+    """
+    if not cfg.causal and shape.kind == "decode":
+        return "encoder-only: no decode step"
+    return None
+
+
+def pairs(include_skipped: bool = False):
+    """Enumerate the assigned (arch, shape) grid."""
+    for cfg in REGISTRY.values():
+        for shape in SHAPES.values():
+            reason = skip_reason(cfg, shape)
+            if reason is None or include_skipped:
+                yield cfg, shape, reason

@@ -7,6 +7,8 @@ name, except the engine):
   prediction.py  predictor algebra, WASTE1/WASTE2 (Eq. 15), Theorem 1
                  breakpoint beta_lim = C_p/p, optimal periods.
   exact.py       exact-Exponential renewal analysis (arXiv:1207.6936).
+  multilevel.py  two-level (hierarchical) checkpointing: first-order model,
+                 (T1*, k*) optimum and its own simulator.
   windows.py     prediction windows (arXiv:1302.4558).
   silent.py      silent errors and verifications (arXiv:1310.8486).
   traces.py      fault / prediction trace generation, per trace and in
@@ -18,12 +20,15 @@ name, except the engine):
   policies.py    the compared strategies incl. BestPeriod search.
 """
 
-from . import (batch, exact, policies, prediction, silent, simulator, traces,
-               waste, windows)
-from .batch import BatchResult, simulate_batch, simulate_lanes
+from . import (batch, exact, multilevel, policies, prediction, silent,
+               simulator, traces, waste, windows)
+from .batch import BatchResult, lane_results, simulate_batch, simulate_lanes
 from .exact import (ExactPlan, beta_lim_exact, optimal_period_exact,
                     t_exact_nopred, waste_exact_nopred,
                     waste_exact_prediction)
+from .multilevel import (TwoLevelPlatform, TwoLevelResult,
+                         optimal_two_level, simulate_two_level,
+                         two_level_stream, waste_two_level)
 from .prediction import (PredictedPlatform, Predictor, beta_lim,
                          optimal_period_with_prediction, t_pred, waste1,
                          waste2)
@@ -36,9 +41,11 @@ from .windows import (WindowPlan, beta_lim_window, optimal_window_plan,
                       t_window_period, waste_window, window_strategy)
 
 __all__ = [
-    "batch", "exact", "policies", "prediction", "silent", "simulator",
-    "traces", "waste", "windows",
-    "BatchResult", "simulate_batch", "simulate_lanes",
+    "batch", "exact", "multilevel", "policies", "prediction", "silent",
+    "simulator", "traces", "waste", "windows",
+    "TwoLevelPlatform", "TwoLevelResult", "optimal_two_level",
+    "simulate_two_level", "two_level_stream", "waste_two_level",
+    "BatchResult", "lane_results", "simulate_batch", "simulate_lanes",
     "ExactPlan", "beta_lim_exact", "optimal_period_exact", "t_exact_nopred",
     "waste_exact_nopred", "waste_exact_prediction",
     "Platform", "Predictor", "PredictedPlatform", "EventTrace", "SimResult",

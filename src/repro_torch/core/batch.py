@@ -4,7 +4,8 @@
 periods* simultaneously: one lane per (candidate, trace) pair, the whole
 fleet of phase machines advanced together on the device by
 :func:`repro_torch.core.batch_torch.run_lanes_torch`.
-:func:`simulate_lanes` is its flat sibling for an explicit list of lanes.
+:func:`lane_results` is its flat sibling for an explicit list of lanes
+(:func:`simulate_lanes` its makespans).
 
 The port's own copy of ``repro/core/batch.py`` (bank packing, trust codes,
 :class:`BatchResult`, candidate arrays and the two entry points), with
@@ -22,6 +23,7 @@ verification knobs and adaptive re-planning.
 from __future__ import annotations
 
 import dataclasses
+from collections import defaultdict
 from typing import Sequence
 
 import numpy as np
@@ -35,6 +37,7 @@ from .waste import Platform
 
 __all__ = [
     "BatchResult",
+    "lane_results",
     "simulate_batch",
     "simulate_lanes",
     "supported_trust",
@@ -155,6 +158,47 @@ class BatchResult:
     est_precision: np.ndarray | None = None
     est_mu: np.ndarray | None = None
 
+    @classmethod
+    def from_lanes(cls, out: dict, time_base: float,
+                   shape: tuple[int, ...]) -> "BatchResult":
+        """The result of ``run_lanes_torch``'s per-lane dict, every array
+        reshaped to ``shape``."""
+        return cls(
+            makespan=out["makespan"].reshape(shape), time_base=time_base,
+            n_faults=out["n_faults"].reshape(shape),
+            n_faults_hit=out["n_faults_hit"].reshape(shape),
+            n_predictions=out["n_predictions"].reshape(shape),
+            n_trusted=out["n_trusted"].reshape(shape),
+            n_trusted_true=out["n_trusted_true"].reshape(shape),
+            n_ignored_by_necessity=out["n_ignored"].reshape(shape),
+            n_periodic_ckpts=out["n_periodic_ckpts"].reshape(shape),
+            time_ckpt=out["time_ckpt"].reshape(shape),
+            time_prockpt=out["time_prockpt"].reshape(shape),
+            time_down=out["time_down"].reshape(shape),
+            time_lost=out["time_lost"].reshape(shape),
+            time_downtime=out["time_downtime"].reshape(shape),
+            time_recovery=out["time_recovery"].reshape(shape),
+            n_proactive_ckpts=out["n_proactive_ckpts"].reshape(shape),
+            n_rollbacks=out["n_rollbacks"].reshape(shape),
+            n_replans=out["n_replans"].reshape(shape),
+            n_silent=out["n_silent"].reshape(shape),
+            n_verifications=out["n_verifications"].reshape(shape),
+            n_deep_rollbacks=out["n_deep_rollbacks"].reshape(shape),
+            time_verify=out["time_verify"].reshape(shape),
+            final_period=out["final_period"].reshape(shape),
+            final_threshold=out["final_threshold"].reshape(shape),
+            est_recall=out["est_recall"].reshape(shape),
+            est_precision=out["est_precision"].reshape(shape),
+            est_mu=out["est_mu"].reshape(shape),
+        )
+
+    def reshape(self, *shape: int) -> "BatchResult":
+        """The same lanes with every array field reshaped."""
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).reshape(*shape)
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), np.ndarray)})
+
     @property
     def waste(self) -> np.ndarray:
         out = np.zeros_like(self.makespan)
@@ -256,7 +300,7 @@ def _as_candidate_arrays(
             wperiod_arr, adaptive_seq)
 
 
-def simulate_lanes(
+def lane_results(
     traces: Sequence[EventTrace],
     platform: Platform,
     time_base: float,
@@ -276,9 +320,9 @@ def simulate_lanes(
     start: float = 0.0,
     chunk: int | None = None,
     device: str | torch.device | None = None,
-) -> np.ndarray:
+) -> BatchResult:
     """Simulate an explicit list of (trace, candidate) lanes; returns the
-    per-lane makespans.
+    per-lane results as a ``(1, n_lanes)`` :class:`BatchResult`.
 
     The flat sibling of :func:`simulate_batch` for callers (the experiment
     runner) whose lanes are not a full candidate x trace grid.  Lane ``j``
@@ -318,7 +362,8 @@ def simulate_lanes(
             == lane_vc.size == lane_kc.size):
         raise ValueError("lane array lengths differ")
     if lane_trace.size == 0:
-        return np.empty(0, dtype=np.float64)
+        return BatchResult.from_lanes(defaultdict(lambda: np.empty(0)),
+                                      time_base, (1, 0))
     bank = _pack_bank(traces, start)
     out = run_lanes_torch(bank, platform, time_base, lane_trace,
                           lane_period, lane_kind, lane_param, lane_window,
@@ -327,7 +372,13 @@ def simulate_lanes(
                           lane_adaptive=lane_adaptive,
                           lane_nverify=lane_nv, lane_vcost=lane_vc,
                           lane_keep=lane_kc, chunk=chunk, device=device)
-    return out["makespan"]
+    return BatchResult.from_lanes(out, time_base, (1, lane_trace.size))
+
+
+def simulate_lanes(traces: Sequence[EventTrace], platform: Platform,
+                   time_base: float, **kwargs) -> np.ndarray:
+    """:func:`lane_results`' per-lane makespans, ``(n_lanes,)``."""
+    return lane_results(traces, platform, time_base, **kwargs).makespan[0]
 
 
 def simulate_batch(
@@ -434,32 +485,4 @@ def simulate_batch(
                           lane_adaptive=lane_adaptive,
                           lane_nverify=lane_nv, lane_vcost=lane_vc,
                           lane_keep=lane_kc, chunk=chunk, device=device)
-    shape = (n_cand, n_traces)
-    return BatchResult(
-        makespan=out["makespan"].reshape(shape), time_base=time_base,
-        n_faults=out["n_faults"].reshape(shape),
-        n_faults_hit=out["n_faults_hit"].reshape(shape),
-        n_predictions=out["n_predictions"].reshape(shape),
-        n_trusted=out["n_trusted"].reshape(shape),
-        n_trusted_true=out["n_trusted_true"].reshape(shape),
-        n_ignored_by_necessity=out["n_ignored"].reshape(shape),
-        n_periodic_ckpts=out["n_periodic_ckpts"].reshape(shape),
-        time_ckpt=out["time_ckpt"].reshape(shape),
-        time_prockpt=out["time_prockpt"].reshape(shape),
-        time_down=out["time_down"].reshape(shape),
-        time_lost=out["time_lost"].reshape(shape),
-        time_downtime=out["time_downtime"].reshape(shape),
-        time_recovery=out["time_recovery"].reshape(shape),
-        n_proactive_ckpts=out["n_proactive_ckpts"].reshape(shape),
-        n_rollbacks=out["n_rollbacks"].reshape(shape),
-        n_replans=out["n_replans"].reshape(shape),
-        n_silent=out["n_silent"].reshape(shape),
-        n_verifications=out["n_verifications"].reshape(shape),
-        n_deep_rollbacks=out["n_deep_rollbacks"].reshape(shape),
-        time_verify=out["time_verify"].reshape(shape),
-        final_period=out["final_period"].reshape(shape),
-        final_threshold=out["final_threshold"].reshape(shape),
-        est_recall=out["est_recall"].reshape(shape),
-        est_precision=out["est_precision"].reshape(shape),
-        est_mu=out["est_mu"].reshape(shape),
-    )
+    return BatchResult.from_lanes(out, time_base, (n_cand, n_traces))

@@ -39,6 +39,7 @@ __all__ = [
     "t_nopred",
     "t_pred",
     "optimal_period_with_prediction",
+    "waste_with_prediction",
 ]
 
 
@@ -219,6 +220,14 @@ def waste2(t: float, pp: PredictedPlatform, *,
     if cadence == "continue":
         base += cadence_correction(t, pp)
     return base
+
+
+def waste_with_prediction(t: float, pp: PredictedPlatform, *,
+                          cadence: str = "restart") -> float:
+    """Waste of the optimal (Theorem 1) strategy at period T: the two-branch Eq. 15."""
+    if t <= beta_lim(pp):
+        return waste1(t, pp)
+    return waste2(t, pp, cadence=cadence)
 
 
 def t_nopred(pp: PredictedPlatform, alpha: float = ALPHA_CAP,

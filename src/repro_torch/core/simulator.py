@@ -158,7 +158,7 @@ class SimResult:
     time_prockpt: float = 0.0      # proactive checkpointing time
     time_down: float = 0.0         # downtime + recovery
     time_lost: float = 0.0         # destroyed (re-executed) work
-    # Waste-attribution split of ``time_down`` (the JAX package's repro.obs): independent
+    # Waste-attribution split of ``time_down`` (repro_torch.obs): independent
     # accumulators for the downtime (D, incl. interrupted downtimes) and
     # recovery (R, incl. interrupted recoveries) portions.  ``time_down``
     # stays the authoritative merged accrual; the split is accrued from the
@@ -210,8 +210,8 @@ class _Machine:
         self.work_per_period = self.period_fn(0.0) - platform.c
         self.time_base = time_base
         self.res = res
-        # Optional trace sink (duck-typed: ``emit(t, kind, **fields)``, as the
-        # JAX package's repro.obs.TraceSink); None = tracing off (zero overhead
+        # Optional repro_torch.obs.TraceSink (duck-typed: ``emit(t, kind,
+        # **fields)``); None = tracing off (zero overhead
         # beyond one ``is not None`` test per hook point).
         self.sink = sink
 
@@ -568,8 +568,8 @@ def simulate(
         constant initial period and a Threshold/Never trust policy (the
         plan *is* the threshold); the re-planned period takes effect at
         the next period start.
-      sink: an optional trace sink (any object with ``emit(t, kind,
-        **fields)``, as the JAX package's ``repro.obs.TraceSink``)
+      sink: an optional :class:`repro_torch.obs.TraceSink` (any object
+        with ``emit(t, kind, **fields)``)
         receiving structured records (checkpoint start/end, proactive checkpoints, faults,
         rollbacks, re-execution spans, prediction arrival + trust
         decision, adaptive replans).  ``None`` (the default) disables

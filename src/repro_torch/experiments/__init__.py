@@ -25,7 +25,8 @@ from .registry import (PREDICTORS, HazardPeriod, aggregate_hazard,
                        register_strategy)
 from .runner import (BestPeriodSearch, EvalCache, ResultTable, best_means,
                      best_period_grid, best_period_search,
-                     candidate_makespans, clear_trace_bank,
+                     candidate_makespans, candidate_results,
+                     clear_trace_bank,
                      default_cache_dir, evaluate_mean, evaluate_strategies,
                      expand_candidates, run_experiment, trace_bank)
 from .spec import (MU_IND_SYNTH, SECONDS_PER_DAY, DistributionSpec,
@@ -63,6 +64,7 @@ __all__ = [
     "best_period_grid",
     "best_period_search",
     "candidate_makespans",
+    "candidate_results",
     "evaluate_mean",
     "evaluate_strategies",
     "expand_candidates",

@@ -10,7 +10,7 @@ place of the numpy lanes:
   * every (candidate x trace) pair deduplicated through an
     :class:`EvalCache`, optionally spilled to disk;
   * every candidate with a constant period and a standard trust policy
-    runs as a lane of :func:`repro_torch.core.batch.simulate_lanes` (the
+    runs as a lane of :func:`repro_torch.core.batch.lane_results` (the
     hand-written ``lane_loop_kernel`` on CUDA); the rest (dynamic periods,
     custom trust policies) run through the scalar oracle
     :func:`repro_torch.core.simulator.simulate` on the host, optionally in
@@ -21,7 +21,8 @@ place of the numpy lanes:
 :class:`BestPeriodSearch` entries alike, and runs every lane candidate of
 the call, each search's whole grid included, in **one lane pass**.  Its
 steps are public: ``expand_candidates`` (strategies to deduplicated
-candidates), ``candidate_makespans`` (one lane pass, per-trace makespans)
+candidates), ``candidate_makespans`` (one lane pass, per-trace makespans;
+``candidate_results`` gives every ``BatchResult`` field of the same pass)
 and ``best_means`` (trace-order means, the best grid point per search).
 :func:`run_experiment` makes one such call per sweep cell.
 
@@ -50,7 +51,7 @@ from typing import Any, Iterable, Iterator, Mapping, Sequence
 import numpy as np
 import torch
 
-from ..core.batch import simulate_lanes, supported_trust
+from ..core.batch import BatchResult, lane_results, supported_trust
 from ..core.policies import Strategy
 from ..core.simulator import (AlwaysTrust, FixedProbabilityTrust,
                               NeverTrust, ThresholdTrust, TrustPolicy,
@@ -71,6 +72,7 @@ __all__ = [
     "best_period_grid",
     "best_period_search",
     "candidate_makespans",
+    "candidate_results",
     "evaluate_mean",
     "evaluate_strategies",
     "expand_candidates",
@@ -535,17 +537,18 @@ def expand_candidates(strategies: Sequence[Strategy | BestPeriodSearch],
     return unique, rows
 
 
-def _lane_makespans(traces: Sequence[EventTrace], platform: Platform,
-                    time_base: float, cp: float, lane: Sequence[Strategy],
-                    tr_idx: np.ndarray, *, seed: int, chunk: int | None,
-                    device) -> np.ndarray:
-    """One lane pass: lane ``j`` runs ``lane[j]`` on trace ``tr_idx[j]``."""
+def _lane_results(traces: Sequence[EventTrace], platform: Platform,
+                  time_base: float, cp: float, lane: Sequence[Strategy],
+                  tr_idx: np.ndarray, *, seed: int, chunk: int | None,
+                  device) -> BatchResult:
+    """One lane pass: lane ``j`` runs ``lane[j]`` on trace ``tr_idx[j]``;
+    a ``(1, len(lane))`` :class:`BatchResult`."""
     for strat in lane:
         if not _batchable(strat):
             raise ValueError(
                 f"the torch lane engine cannot run strategy {strat.name!r} "
                 f"(dynamic period or unsupported trust policy)")
-    return simulate_lanes(
+    return lane_results(
         traces, platform, time_base, cp=cp, trace_indices=tr_idx,
         periods=[float(s.period) for s in lane],
         trusts=[s.trust for s in lane],
@@ -557,6 +560,37 @@ def _lane_makespans(traces: Sequence[EventTrace], platform: Platform,
         verify_costs=[s.verify_cost for s in lane],
         keep_ckpts=[s.keep_ckpts for s in lane],
         seeds=seed + 7919 * tr_idx, chunk=chunk, device=device)
+
+
+def candidate_results(
+    traces: Sequence[EventTrace],
+    platform: Platform,
+    time_base: float,
+    cp: float,
+    candidates: Sequence[Strategy],
+    *,
+    seed: int = 0,
+    trace_indices: Sequence[int] | None = None,
+    chunk: int | None = None,
+    device: str | torch.device | None = None,
+) -> BatchResult:
+    """Every candidate on every bank trace in ``trace_indices`` (``None``:
+    all), as one lane pass of :func:`lane_results`: a
+    ``(len(candidates), len(trace_indices))`` :class:`BatchResult`.
+
+    The lane of trace ``i`` draws from ``default_rng(seed + 7919 * i)``,
+    and lanes do not interact, so a subset of traces gives the bits of
+    those columns of the whole.  ``device`` is where the lanes run
+    (``None``: CUDA).
+    """
+    idx = (np.arange(len(traces), dtype=np.int64) if trace_indices is None
+           else np.asarray(trace_indices, dtype=np.int64))
+    lane = [candidates[ci] for ci in np.repeat(np.arange(len(candidates)),
+                                               idx.size)]
+    res = _lane_results(traces, platform, time_base, cp, lane,
+                        np.tile(idx, len(candidates)), seed=seed,
+                        chunk=chunk, device=device)
+    return res.reshape(len(candidates), idx.size)
 
 
 def candidate_makespans(
@@ -571,26 +605,11 @@ def candidate_makespans(
     chunk: int | None = None,
     device: str | torch.device | None = None,
 ) -> np.ndarray:
-    """Makespan of every candidate on every bank trace in ``trace_indices``
-    (``None``: all), as one lane pass of :func:`simulate_lanes`.
-
-    Returns ``(len(candidates), len(trace_indices))``.  The lane of trace
-    ``i`` draws from ``default_rng(seed + 7919 * i)``, and lanes do not
-    interact, so a subset of traces gives the bits of those columns of the
-    whole.  ``device`` is where the lanes run (``None``: CUDA).
-    """
-    idx = (np.arange(len(traces), dtype=np.int64) if trace_indices is None
-           else np.asarray(trace_indices, dtype=np.int64))
-    n = idx.size
-    out = np.empty((len(candidates), n), dtype=np.float64)
-    if n and len(candidates):
-        lane = [candidates[ci] for ci in np.repeat(np.arange(len(candidates)),
-                                                   n)]
-        ms = _lane_makespans(traces, platform, time_base, cp, lane,
-                             np.tile(idx, len(candidates)), seed=seed,
-                             chunk=chunk, device=device)
-        out[:] = ms.reshape(len(candidates), n)
-    return out
+    """:func:`candidate_results`' makespans,
+    ``(len(candidates), len(trace_indices))``."""
+    return candidate_results(traces, platform, time_base, cp, candidates,
+                             seed=seed, trace_indices=trace_indices,
+                             chunk=chunk, device=device).makespan
 
 
 def _trace_mean(row: np.ndarray) -> float:
@@ -658,10 +677,10 @@ def _evaluate(traces: Sequence[EventTrace], platform: Platform,
     if lane_items:
         tr_idx = np.fromiter((ti for _, ti in lane_items), np.int64,
                              len(lane_items))
-        lane_ms = _lane_makespans(
+        lane_ms = _lane_results(
             traces, platform, time_base, cp,
             [unique[ci] for ci, _ in lane_items], tr_idx, seed=seed,
-            chunk=chunk, device=device)
+            chunk=chunk, device=device).makespan[0]
         for (ci, ti), m in zip(lane_items, lane_ms):
             makespans[ci, ti] = m
             cache.put(unique[ci], ti, float(m))

@@ -1,9 +1,9 @@
 """Checkpoint scheduler: the paper's optimal policy as a runtime component.
 
-The port's own copy of ``repro/ft/scheduler.py:33-129`` with
-``objective="waste"``, over the port's ``core/waste.py`` and
-``core/prediction.py`` (bitwise copies of the reference's), so its
-decision is the reference's floats:
+The port's own copy of ``repro/ft/scheduler.py``, over the port's
+``core/waste.py``, ``core/prediction.py`` and ``fleet/availability.py``
+(bitwise copies of the reference's), so its decision is the reference's
+floats:
 
   * the platform MTBF is derived from the mesh size
     (mu = mu_ind / n_devices, paper Prop. 2);
@@ -14,8 +14,9 @@ decision is the reference's floats:
   * predictions are trusted iff their date falls >= beta_lim = C_p / p
     after the last state save (Theorem 1).
 
-``objective="availability"`` needs the fleet availability model, which
-the port does not have yet (ROADMAP Queue A item 14).
+The scheduler is deliberately stateless w.r.t. the training state — it just
+answers "checkpoint now?", "trust this prediction?" from clock readings, so
+the trainer, the serving engine, or an external orchestrator can all drive it.
 """
 
 from __future__ import annotations
@@ -35,12 +36,20 @@ __all__ = ["ScheduleDecision", "CheckpointScheduler"]
 class ScheduleDecision:
     period: float          # chosen checkpointing period T*
     use_predictions: bool  # whether the WASTE2 branch won
-    beta_lim: float        # trust threshold (C_p/p)
-    expected_waste: float  # analytic waste at T*
+    beta_lim: float        # trust threshold (C_p/p; availability: beta_A)
+    expected_waste: float  # analytic objective value at T* (waste or U)
 
 
 class CheckpointScheduler:
-    """Plans checkpoint cadence and trust decisions for a live job."""
+    """Plans checkpoint cadence and trust decisions for a live job.
+
+    ``objective`` selects the analytic model the plan minimizes:
+    ``"waste"`` (default) is the paper's makespan overhead,
+    ``"availability"`` the weighted outage fraction of
+    :mod:`repro.fleet.availability`, using the platform's
+    ``ckpt_outage`` / ``prockpt_outage`` / ``replay_outage`` fractions
+    (unit weights plan identically to ``"waste"``).
+    """
 
     def __init__(self, platform: PlatformConfig, n_devices: int, *,
                  c: float | None = None, cp: float | None = None,
@@ -49,11 +58,6 @@ class CheckpointScheduler:
         if objective not in ("waste", "availability"):
             raise ValueError(f"objective must be 'waste' or 'availability', "
                              f"got {objective!r}")
-        if objective == "availability":
-            raise NotImplementedError(
-                "objective='availability' needs the fleet availability "
-                "model (repro/fleet/availability.py), ROADMAP Queue A "
-                "item 14")
         self.cfg = platform
         self.n_devices = n_devices
         self.objective = objective
@@ -66,7 +70,26 @@ class CheckpointScheduler:
         self.mu = platform.mu_ind / n_devices
         self.plat = Platform(mu=self.mu, c=self.c, d=platform.d, r=platform.r)
         self.use_predictor = use_predictor and platform.recall > 0
-        if self.use_predictor:
+        if objective == "availability":
+            from ..fleet.availability import (OutageWeights, beta_avail,
+                                              optimal_period_availability,
+                                              t_avail_nopred,
+                                              unavailability_nopred)
+            w = OutageWeights(ckpt=platform.ckpt_outage,
+                              prockpt=platform.prockpt_outage,
+                              replay=platform.replay_outage)
+            if self.use_predictor:
+                pred = Predictor(recall=platform.recall,
+                                 precision=platform.precision)
+                self.pp = PredictedPlatform(self.plat, pred, cp=self.cp)
+                t, u, use = optimal_period_availability(self.pp, w)
+                self.decision = ScheduleDecision(
+                    t, use, beta_avail(self.pp, w), u)
+            else:
+                t = t_avail_nopred(self.plat, w)
+                self.decision = ScheduleDecision(
+                    t, False, math.inf, unavailability_nopred(t, self.plat, w))
+        elif self.use_predictor:
             pred = Predictor(recall=platform.recall,
                              precision=platform.precision)
             self.pp = PredictedPlatform(self.plat, pred, cp=self.cp)

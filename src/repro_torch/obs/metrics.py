@@ -2,8 +2,9 @@
 
 The port's own copy of ``repro/obs/metrics.py``.  A
 :class:`MetricsRegistry` is a plain dict-of-dicts with no locking or
-export machinery — the torch lane engine's chunk loop increments into
-whichever registry is *installed* (:func:`get_registry`).  Deterministic
+export machinery — the torch lane engine's chunk loop, the ft runtime
+and the fleet simulator increment into whichever registry is *installed*
+(:func:`get_registry`).  Deterministic
 counters (replans, deferred-fault overflows, total cache lookups) are
 safe to diff exactly; wall-clock timers and
 rates (``*_s``, ``lanes_per_s``) carry the store's timing-key naming so
@@ -42,6 +43,8 @@ Metric names used by the instrumented call sites:
 ``kernels.event_step.launches``         event_step kernel launches (0 on
                                         the lane engine's CUDA path, whose
                                         advance runs in lane_loop)
+``fleet.faults`` / ``fleet.repair_waits``  fleet coupling events (counters)
+``ft.predictions`` / ``ft.faults_injected``  ft-runtime activity (counters)
 ======================================  ==================================
 """
 

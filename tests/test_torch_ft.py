@@ -146,8 +146,20 @@ def test_scheduler_requires_positive_costs():
 
 
 def test_scheduler_availability_objective_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CheckpointScheduler(PLAT, 1, objective="availability")
+    """The availability objective is ported now (the name is kept): its
+    decision is the reference's floats, with and without a predictor, and
+    an unknown objective still raises."""
+    for w in ((1.0, 1.0, 1.0), (0.25, 0.25, 1.0)):
+        out = dict(ckpt_outage=w[0], prockpt_outage=w[1],
+                   replay_outage=w[2])
+        for use in (True, False):
+            port = CheckpointScheduler(dataclasses.replace(PLAT, **out), 1,
+                                       objective="availability",
+                                       use_predictor=use)
+            ref = RefScheduler(dataclasses.replace(REF_PLAT, **out), 1,
+                               objective="availability", use_predictor=use)
+            assert dataclasses.astuple(port.decision) \
+                == dataclasses.astuple(ref.decision)
     with pytest.raises(ValueError, match="objective"):
         CheckpointScheduler(PLAT, 1, objective="throughput")
 

@@ -7,8 +7,10 @@
   imports ``repro_torch``, runs a tiny CPU grid (static and adaptive
   lanes, over traces of a generative predictor model), builds a tiny CPU
   trainer that takes a step, a full and a proactive save and a restore,
-  and serves a tiny CPU ``generate`` through both attention routes;
-  afterwards ``sys.modules`` holds neither.
+  serves a tiny CPU ``generate`` through both attention routes, and runs
+  the two-level model, attribution and a traced replay, a small fleet
+  sized from the model zoo, the availability scheduler and the adaptive
+  scheduler; afterwards ``sys.modules`` holds neither.
 * Without CUDA, an entry point called without ``device=`` raises instead
   of running on the CPU.
 * The constants and configs the port re-declares equal the reference's
@@ -57,7 +59,17 @@ def test_port_files_found():
             "convert.py", "train.py", "engine.py", "serve.py",
             "flash_attention.py", "decode_attention.py", "ops.py",
             "exact.py", "estimator.py", "base.py", "models.py",
-            "registry.py"} <= names
+            "registry.py", "multilevel.py", "trace.py", "attribution.py",
+            "perfetto.py", "availability.py", "plan.py", "sim.py",
+            "spec.py", "experiment.py", "extras.py", "llama3_405b.py",
+            "internlm2_20b.py", "hubert_xlarge.py", "qwen2_moe_a27b.py",
+            "qwen2_vl_72b.py", "qwen3_moe_235b_a22b.py",
+            "recurrentgemma_2b.py", "xlstm_125m.py"} <= names
+    port = ROOT / "src" / "repro_torch"
+    assert {"fleet/__init__.py", "fleet/sim.py", "ft/estimator.py",
+            "obs/trace.py", "core/multilevel.py"} \
+        <= {str(p.relative_to(port)) for p in PORT_FILES
+            if port in p.parents}
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -141,6 +153,42 @@ for impl in ("ref", "pallas"):
                         cache_len=12)
     out = eng.generate({"tokens": torch.zeros((2, 8), dtype=torch.int32)}, 4)
     assert out.tokens.shape == (2, 4) and bool((out.logprobs <= 0).all())
+from repro_torch.configs import REGISTRY, EXTRAS
+from repro_torch.core import (TwoLevelPlatform, optimal_two_level,
+                              simulate_two_level, two_level_stream)
+from repro_torch.fleet import (FleetJobSpec, FleetSpec, OutageWeights,
+                               evaluate_fleet, job_from_model)
+from repro_torch.ft import AdaptiveScheduler, CheckpointScheduler
+from repro_torch.obs import (RecordingSink, attribute_lanes,
+                             attribute_result, fleet_to_perfetto,
+                             record_run)
+
+assert len(REGISTRY) == 10 and len(EXTRAS) == 2
+p2 = TwoLevelPlatform(mu=5000.0, phi=0.7, c1=5.0, c2=100.0, r1=5.0,
+                      r2=100.0, d=2.0)
+t1, k, _ = optimal_two_level(p2)
+f, soft = two_level_stream(p2, 1e6, np.random.default_rng(0))
+assert simulate_two_level(f, soft, p2, 1e5, t1, k).makespan > 1e5
+lanes, closed = attribute_lanes(res)
+assert closed.shape == res.makespan.shape
+run, sink = record_run(traces[0], Platform(mu=2500.0, c=60.0, d=10.0,
+                                           r=30.0), 10000.0, 1200.0, cp=30.0,
+                       trust=ThresholdTrust(100.0))
+assert len(sink) > 0 and attribute_result(run).makespan == run.makespan
+assert fleet_to_perfetto([("job", sink.events)])["traceEvents"]
+fleet = FleetSpec(jobs=(job_from_model("llama3-405b", n_devices=8192,
+                                       n_traces=1, time_base_days=1.0),
+                        FleetJobSpec(scenario=sc)),
+                  objective="availability",
+                  outage=OutageWeights(ckpt=0.25, prockpt=0.25),
+                  storage_streams=1, repair_slots=1)
+assert len(evaluate_fleet(fleet).rows) == 2
+plat = PlatformConfig(mu_ind=3e5, c=30.0, cp=10.0, d=5.0, r=15.0,
+                      ckpt_outage=0.5)
+assert CheckpointScheduler(plat, 1, objective="availability").period > 0
+ada = AdaptiveScheduler(plat, 1, c=30.0, cp=10.0)
+ada.estimator.observe_fault(100.0)
+ada.maybe_replan()
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not leaked, leaked
