@@ -167,7 +167,12 @@ result):
                lengths), and cases that cut the bf16 flash kernel's
                64-row and 64-key tiles unevenly and decode prefixes that
                end inside a cluster's last block, float32 at 2e-6 and
-               bfloat16 to one bf16 ulp.
+               bfloat16 to one bf16 ulp.  Head dim 256 (recurrentgemma-2b's
+               10 heads over one kv head): flash at seq 2,048 with window
+               2,048, uneven tiles, a window, q_offset and no mask; decode
+               over the wrapped, ragged 2,048-slot ring, a short ring and
+               an append cache; the first two timed in bf16 beside plain,
+               SDPA and the bound.
 11. serving   - the slice's main path: ServingEngine on tinyllama-1.1b at
                full width (bf16, attn_impl="pallas", cache_len 2176),
                batch 8, prompt 2,048, 128 new tokens, greedy; prefill s,
@@ -197,17 +202,53 @@ result):
                plain) with the ref route teacher-forced over its tokens,
                and forward_train through the flash kernel (22 launches),
                both within 1e-4 of the ref route's largest logit.
-13. serving cuda vs cpu - reduced llama3.2-1b in float32 (batch 3, prompt
+13. serving cuda vs cpu - reduced llama3.2-1b, qwen2-moe-a2.7b,
+               recurrentgemma-2b and xlstm-125m in float32 (batch 3, prompt
                24, 8 new tokens, cache_len 48, as ``tests/test_serve.py``)
                with attn_impl="pallas" on CUDA (the kernel) and on the CPU
                (its plain version): greedy tokens ``==``, logprobs within
-               1e-4.
+               1e-4, one decode launch per attention layer and step.
+14. families  - qwen2-moe-a2.7b (24 layers, d 2048, 16/16 heads of 128, 60
+               routed experts stored as 64, top 4, 4 shared, expert d_ff
+               1408, vocab 151,936), recurrentgemma-2b (26 layers: rec,
+               rec, local x 8 and rec, rec; d 2560, 10 heads of 256 over one
+               kv head, window 2,048, vocab 256,000) and xlstm-125m (12
+               layers of mLSTM, sLSTM; d 768, 4 heads, tied head) at their
+               published widths, served as phase 11's cell (bf16, random
+               weights from seed 0, attn_impl="pallas", batch 8, prompt
+               2,048, 128 new tokens, greedy, cache_len 2,176): prefill s
+               (and where a synchronised prefill spends it by block
+               function), decode ms a step beside the step's bytes bound,
+               tokens/s with and without the prefill, peak memory, the
+               launch counts read from 0 before the generate (decode 24 x
+               128, 8 x 128, 0), a profiled window; a checked generate:
+               the decode kernel held to plain on every attention layer's
+               inputs at the first and last step (one bf16 ulp; 2e-6 cast
+               to float32), the ref route teacher-forced over the tokens
+               (each step's logits against the largest; prefill is
+               the same code in both routes and decode is dropless in
+               both, so the MoE capacity does not enter; for MoE the ref
+               route replays the kernel route's expert choices, see
+               ``_Replay``), the decode kernel timed on the last step's
+               inputs; forward_train through the flash kernel (24, 8, 0
+               launches) against the ref route, the kernel held to
+               plain on the first attention layer's inputs and timed
+               there.  The bf16 logit comparisons are printed and not
+               held: bf16 rounding alone passes 2e-2 in these 24- and
+               26-layer cells (``_limit_note``).  Then each cell in float32
+               at full width: the checked generate (decode kernel within
+               2e-6), the ref route teacher-forced within 1e-4 of the
+               largest logit and forward_train over two prompts within
+               1e-4, MoE expert choices replayed and each held to a near
+               tie (within 2e-2 of the ref route's own k-th gate).
 
 The last two lines are the ``kernels`` JSON line (all five TPU kernels;
 the event_step entry reports lane_loop_kernel, which carries the advance
 on the main path, with its adaptive instantiation's check, time, launches
 and bound from phase 3a, the predictor study's launches and the
-experiment phase's launches and check) and
+experiment phase's launches and check; the attention entries add the
+families phase's launches per cell and the hd-256 and per-family
+timings) and
 ``{"ok": true, "device": {...}}``.  Run from a checkout: it imports the
 port from ``src/`` beside it and builds into ``build/repro_torch/``.  The
 checkpoint phases write about 27 GB into a temporary directory (under
@@ -2974,14 +3015,24 @@ FLASH_CASES = (
     (2, 128, 256, 4, 2, 32, True, 0, 128),
     (2, 128, 128, 4, 4, 64, False, 0, 0), (1, 64, 64, 2, 2, 128, True, 0, 0),
     (1, 96, 96, 2, 2, 32, True, 0, 0), (1, 2048, 2048, 32, 4, 64, True, 0, 0),
-    (1, 130, 130, 4, 2, 64, True, 0, 0), (1, 64, 200, 4, 2, 64, True, 0, 136))
+    (1, 130, 130, 4, 2, 64, True, 0, 0), (1, 64, 200, 4, 2, 64, True, 0, 136),
+    # head dim 256: recurrentgemma-2b's local attention (10 heads over one
+    # kv head, window 2,048) at the families phase's sequence, and uneven
+    # tiles, a window, q_offset and no mask.
+    (1, 2048, 2048, 10, 1, 256, True, 2048, 0),
+    (2, 130, 130, 4, 2, 256, True, 64, 0), (1, 64, 200, 4, 2, 256, True, 0, 136),
+    (2, 128, 128, 4, 4, 256, False, 0, 0))
 DECODE_CASES = (
     # (b, s, h, kv, hd, window, lengths)
     (2, 256, 8, 2, 64, 0, (200, 200)), (2, 256, 8, 8, 64, 0, (17, 17)),
     (3, 128, 10, 1, 32, 64, (100, 100, 100)), (1, 512, 4, 4, 128, 0, (512,)),
     (2, 128, 4, 2, 64, 128, (40, 40)), (3, 128, 4, 2, 32, 0, (1, 64, 128)),
     (8, 2176, 32, 4, 64, 0, (2176, 2175, 2113, 2049, 2048, 1000, 64, 1)),
-    (2, 2176, 32, 4, 64, 0, (2175, 273)))
+    (2, 2176, 32, 4, 64, 0, (2175, 273)),
+    # head dim 256, g = 10: recurrentgemma-2b's 2,048-slot ring, wrapped
+    # and ragged; a short ring and an append cache.
+    (8, 2048, 10, 1, 256, 2048, (2176, 2175, 2113, 2049, 2048, 1000, 64, 1)),
+    (3, 128, 10, 1, 256, 64, (100, 1, 128)), (2, 256, 8, 2, 256, 0, (200, 17)))
 # Kernel against plain, as (atol, rtol): float32 at the reference's 2e-6;
 # bfloat16 to one bf16 ulp, since kernel and plain each round one float32
 # result to bf16 once (atol for values near 0).
@@ -3017,10 +3068,11 @@ def _randn(shape, dtype, seed: int):
         .to(getattr(torch, dtype)).cuda()
 
 
-def phase_attention_kernels(errs: dict) -> None:
+def phase_attention_kernels(errs: dict) -> dict:
     """Both attention kernels against their plain versions on the
     reference's cases and one at the main path's shapes, float32 and
-    bfloat16."""
+    bfloat16; then the head-dim-256 cases at recurrentgemma-2b's shapes
+    timed (:func:`_time_hd256`)."""
     import torch
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
@@ -3058,36 +3110,160 @@ def phase_attention_kernels(errs: dict) -> None:
         f"bfloat16 (one bf16 ulp): kernel == plain within tolerance; "
         f"largest differences "
         f"{ {f'{n} {d}': e for (n, d), e in worst.items()} }")
+    return _time_hd256()
 
 
-def _serving_setup(dtype: str):
+def _time_hd256() -> dict:
+    """Both kernels at head dim 256 in bf16 on phase 10's cases at
+    recurrentgemma-2b's shapes (10 heads over one kv head): flash at seq
+    2,048 with window 2,048, decode over the wrapped, ragged 2,048-slot
+    ring (8 such caches in turn, as the model's 8 attention layers, so L2
+    is cold); timed beside plain, SDPA and the bound."""
+    import torch
+    b, sq, skv, h, kv, hd, _, window, _ = FLASH_CASES[11]
+    q = _randn((b, sq, h, hd), "bfloat16", 0)
+    k = _randn((b, skv, kv, hd), "bfloat16", 1)
+    v = _randn((b, skv, kv, hd), "bfloat16", 2)
+    flash = _time_flash(q, k, v, window, "at head dim 256 (phase 10's case")
+    b, s, h, kv, hd, window, lengths = DECODE_CASES[8]
+    n = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    layers = [(_randn((b, 1, h, hd), "bfloat16", 3 + 3 * i),
+               _randn((b, s, kv, hd), "bfloat16", 4 + 3 * i),
+               _randn((b, s, kv, hd), "bfloat16", 5 + 3 * i), n, window)
+              for i in range(8)]
+    decode = _time_decode(layers, "head dim 256 (phase 10's case)")
+    return {"flash_attention": flash, "decode_attention": decode}
+
+
+def _serving_setup(dtype: str, arch: str = ARCH, tag: str = "[serve]",
+                   prompt: int = PROMPT, n_new: int = NEW_TOKENS):
     import torch
     from repro_torch.configs import get
     from repro_torch.configs.base import InputShape
     from repro_torch.models.model import init_params, make_batch
     from repro_torch.serve import ServingEngine
-    cfg = dataclasses.replace(get(ARCH), attn_impl="pallas", dtype=dtype)
+    from repro_torch.tree import flatten
+    cfg = dataclasses.replace(get(arch), attn_impl="pallas", dtype=dtype)
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
-    batch = make_batch(cfg, InputShape("serve", PROMPT, SERVE_BATCH,
+    batch = make_batch(cfg, InputShape("serve", prompt, SERVE_BATCH,
                                        "prefill"), gen)
     engine = ServingEngine(cfg, params, cache_len=SERVE_CACHE)
     torch.cuda.synchronize()
-    log(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, head_dim {cfg.head_dim}, "
-        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}, attn_impl "
-        f"{cfg.attn_impl}, attn_layout {cfg.attn_layout}; batch "
-        f"{SERVE_BATCH}, prompt {PROMPT}, {NEW_TOKENS} new tokens, cache_len "
-        f"{SERVE_CACHE}; built on the card in "
+    leaves = flatten(params)
+    log(f"{tag} {cfg.name}: {cfg.n_layers} layers {cfg.block_unit}, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, head_dim "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, experts {cfg.n_experts} (stored "
+        f"{max(cfg.n_experts, cfg.pad_experts_to)}) top {cfg.top_k} + "
+        f"{cfg.n_shared_experts} shared of {cfg.expert_d_ff}, lru_width "
+        f"{cfg.lru_width if 'rec' in cfg.blocks else 0}, window "
+        f"{cfg.attn_window if 'local' in cfg.blocks else 0}, vocab "
+        f"{cfg.vocab_size}, tied {cfg.tie_embeddings}, {cfg.dtype}, attn_impl "
+        f"{cfg.attn_impl}, attn_layout {cfg.attn_layout}; param_count "
+        f"{cfg.param_count()}, stored {sum(t.numel() for t in leaves)} "
+        f"({sum(t.numel() * t.element_size() for t in leaves) / 1e9:.3f} "
+        f"GB); batch {SERVE_BATCH}, prompt {prompt}, {n_new} new tokens,"
+        f" cache_len {SERVE_CACHE}; built on the card in "
         f"{time.perf_counter() - t0:.2f} s")
     return cfg, params, batch, engine
 
 
-def _profile_decode(engine, batch, n_steps: int = 8) -> None:
+def _attn_layers(cfg) -> int:
+    """The attention layers of ``cfg``: decode_attention launches a decode
+    step, flash_attention launches a forward_train."""
+    return sum(kind in ("attn", "local") for kind in cfg.blocks)
+
+
+class _Routes:
+    """While ``on``, each MoE call's expert choices (``moe._top_k``'s
+    indices), call by call."""
+
+    def __init__(self):
+        self.calls, self.on = [], False
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._orig = moe._top_k
+
+        def recorded(gates, k):
+            vals, idx = self._orig(gates, k)
+            if self.on:
+                self.calls.append(idx.clone())
+            return vals, idx
+
+        moe._top_k = recorded
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from repro_torch.models import moe
+        moe._top_k = self._orig
+
+
+class _Replay:
+    """While ``on``, the MoE layers take the experts recorded in ``calls``
+    (a :class:`_Routes` of another run, call for call) instead of their
+    own top-k, with the weights of their own gates at those experts.
+
+    The kernel route and the ref route differ by rounding only, but in
+    bf16 that rounding tips router choices that nearly tie, a tipped token
+    routes otherwise in its later layers, and the difference spreads
+    through the cached k and v: two bf16 runs of a 24-layer MoE part after
+    some steps whatever their attention (the diagnostic in ``PERF.md``
+    §6).  Replaying the kernel route's choices in the ref route
+    leaves attention as the only difference.  Each replayed choice is held
+    to be a near tie of the ref route's own: ``margin`` is the largest
+    (own k-th gate - the smallest replayed gate) / own k-th gate over all
+    tokens and calls (0 where the two pick the same), and ``moved`` counts
+    the (token, call) pairs whose picks differ."""
+
+    def __init__(self, calls: list):
+        self.calls, self.i, self.on = calls, 0, False
+        self.margin, self.moved, self.picks = 0.0, 0, 0
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self._orig = moe._top_k
+
+        def replayed(gates, k):
+            own_vals, own_idx = self._orig(gates, k)
+            if not self.on:
+                return own_vals, own_idx
+            idx = self.calls[self.i]
+            self.i += 1
+            vals = gates.gather(-1, idx)
+            worst = torch.clamp((own_vals[..., -1] - vals.amin(dim=-1))
+                                / own_vals[..., -1], min=0.0)
+            self.margin = max(self.margin, float(worst.max()))
+            self.moved += int((torch.sort(idx, dim=-1).values
+                               != torch.sort(own_idx, dim=-1).values)
+                              .any(dim=-1).sum())
+            self.picks += idx.numel() // k
+            return vals, idx
+
+        moe._top_k = replayed
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from repro_torch.models import moe
+        moe._top_k = self._orig
+        if exc[0] is None and self.i != len(self.calls):
+            raise AssertionError(f"replayed {self.i} of {len(self.calls)} "
+                                 f"recorded MoE calls")
+
+
+# Where the logits are held, a replayed expert choice must be a near tie of
+# the ref route's own: its gate within this share of the own k-th largest.
+ROUTE_MARGIN = 2e-2
+
+
+def _profile_decode(engine, batch, n_steps: int = 8,
+                    tag: str = "[serve]") -> float:
     """Device busy share over a window of decode steps (profiler), and one
-    decode-attention kernel per layer per step in it."""
+    decode-attention kernel per attention layer per step in it (none
+    without attention); returns the busy share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     logits, cache = engine.prefill(batch)
@@ -3104,20 +3280,21 @@ def _profile_decode(engine, batch, n_steps: int = 8) -> None:
     rows = _device_rows(prof)
     busy = sum(r[0] for r in rows) / 1e6
     events = sum(r[2] for r in rows)
-    log(f"[serve] {n_steps} profiled decode steps: wall {wall * 1e3:.3f} ms "
+    log(f"{tag} {n_steps} profiled decode steps: wall {wall * 1e3:.3f} ms "
         f"({wall / n_steps * 1e3:.3f} ms a step), device busy "
         f"{busy * 1e3:.3f} ms ({busy / wall:.3f} of wall), {events} device "
         f"events ({events / n_steps:.1f} a step)")
     for dev_us, key, count in sorted(rows, reverse=True)[:8]:
-        log(f"[serve]   {dev_us / 1e3:10.3f} ms  {count:6d}x  {key[:70]}")
+        log(f"{tag}   {dev_us / 1e3:10.3f} ms  {count:6d}x  {key[:70]}")
     decode = [(key, count) for _, key, count in rows if "decode_kernel" in key]
-    want = engine.cfg.n_layers * n_steps
-    log(f"[serve] decode-attention kernels in the window: "
-        f"{sum(c for _, c in decode)} ({want} wanted: one per layer per "
-        f"step); {[k[:60] for k, _ in decode]}")
-    if len(decode) != 1 or decode[0][1] != want:
+    want = _attn_layers(engine.cfg) * n_steps
+    log(f"{tag} decode-attention kernels in the window: "
+        f"{sum(c for _, c in decode)} ({want} wanted: one per attention "
+        f"layer per step); {[k[:60] for k, _ in decode]}")
+    if (len(decode) != 1 or decode[0][1] != want) if want else decode:
         raise AssertionError(f"the profiled decode window holds "
                              f"{decode}, not one decode kernel {want} times")
+    return busy / wall
 
 
 def _time_attention(name: str, kernel, plain, library, bound: dict,
@@ -3140,12 +3317,13 @@ def _device_ms(fn, calls: int, runs: int = 3) -> float:
     """Device time per call (profiler): the device time of everything
     ``runs`` runs of ``fn`` launch, over their ``runs * calls`` calls.  A
     profile that recorded no device event (the tracer lost the window) is
-    taken again, up to three times, then raises."""
+    taken again with three times the runs, up to three times, then
+    raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for runs in (runs, 3 * runs, 9 * runs):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(runs):
@@ -3158,45 +3336,49 @@ def _device_ms(fn, calls: int, runs: int = 3) -> float:
                        "tries")
 
 
-def _time_decode(layers: list) -> dict:
-    """decode_attention over the last decode step's inputs of every layer
-    in turn (22 x 17.9 MB of caches, so L2 is cold as in a decode step),
-    per call, beside its plain version, SDPA and the bytes bound: by CUDA
-    events around back-to-back calls, and as device time (profiler), which
-    the result carries.  The kernel takes less device time than its
-    wrapper takes on the host, so back-to-back calls time the host."""
+def _time_decode(layers: list, what: str = "the last decode step") -> dict:
+    """decode_attention over ``layers``' (q, k cache, v cache, length,
+    window) in turn (22 x 17.9 MB of caches at the serving cell, so L2 is
+    cold as in a decode step), per call, beside its plain version, SDPA
+    and the bytes bound: by CUDA events around back-to-back calls, and as
+    device time (profiler), which the result carries.  The kernel takes
+    less device time than its wrapper takes on the host, so back-to-back
+    calls time the host."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as da
-    q, kc, _, n = layers[0]
+    q, kc, _, n, window = layers[0]
     g = q.shape[2] // kc.shape[2]
-    nbytes = da.bytes_moved(q, kc, n)
+    nbytes = da.bytes_moved(q, kc, n, window=window)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     # The library call: SDPA over the same caches (head-major views, the
     # kv heads repeated outside the timed call) with the length mask.
+    lim = torch.clamp(n, max=window) if window else n
     mask = (torch.arange(kc.shape[1], device="cuda")[None, :]
-            < n[:, None])[:, None, None, :]
+            < lim[:, None])[:, None, None, :]
     sdpa_in = [(q.transpose(1, 2),
                 kc.transpose(1, 2).repeat_interleave(g, dim=1),
                 vc.transpose(1, 2).repeat_interleave(g, dim=1))
-               for q, kc, vc, _ in layers]
+               for q, kc, vc, _, _ in layers]
     per = len(layers)
     launches = da.decode_attention.launches
 
     def kernel():
-        return [da.decode_attention(*x) for x in layers]
+        return [da.decode_attention(q, kc, vc, n, window=w)
+                for q, kc, vc, n, w in layers]
 
     def plain():
-        return [da.decode_attention_ref(*x) for x in layers]
+        return [da.decode_attention_ref(q, kc, vc, n, window=w)
+                for q, kc, vc, n, w in layers]
 
     def library():
         return [F.scaled_dot_product_attention(*x, attn_mask=mask)
                 for x in sdpa_in]
 
     out = _time_attention(
-        f"decode_attention at the last decode step, over the {per} layers' "
-        f"inputs in turn (each: q {tuple(q.shape)}, caches "
-        f"{tuple(kc.shape)}, length {int(n[0])}), per call, CUDA events",
+        f"decode_attention at {what}, over {per} layers' inputs in turn "
+        f"(each: q {tuple(q.shape)} {q.dtype}, caches {tuple(kc.shape)}, "
+        f"window {window}, length {int(n[0])}), per call, CUDA events",
         kernel, plain, library,
         {"bound_ms": bound_ms, "bound_by": "bytes",
          "note": f"{nbytes} bytes at {HBM_BYTES_PER_S:.3g} B/s"}, 20, 3,
@@ -3211,10 +3393,12 @@ def _time_decode(layers: list) -> dict:
     return {**out, **dev}
 
 
-def _time_flash(q, k, v) -> dict:
+def _time_flash(q, k, v, window: int = 0,
+                what: str = "in forward_train (layer 0") -> dict:
+    import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    ops = fa.flops(tuple(q.shape), k.shape[1], causal=True)
+    ops = fa.flops(tuple(q.shape), k.shape[1], causal=True, window=window)
     ops_ms = ops / BF16_FLOP_PER_S * 1e3
     # The bf16 kernel's own tensor work: p @ v three times (p in three bf16
     # parts), so 8 * hd flops per valid pair instead of 4 * hd.
@@ -3230,98 +3414,162 @@ def _time_flash(q, k, v) -> dict:
                      f"bf16 parts, the kernel's tensor work: {split_ms:.6f} "
                      f"ms); {nbytes} bytes = {bytes_ms:.6f} ms"}
     qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
+    g = q.shape[2] // k.shape[2]
+    if g > 1:                     # SDPA takes as many kv heads as q heads
+        ks, vs = (t.repeat_interleave(g, dim=1) for t in (ks, vs))
+    sq, skv = q.shape[1], k.shape[1]
+    if window and window < skv:
+        pos = torch.arange(skv, device=q.device)
+        qp = pos[skv - sq:, None]
+        mask = (qp >= pos[None, :]) & (qp - pos[None, :] < window)
+        sdpa = dict(attn_mask=mask)
+    else:                         # a window of at least Skv cuts nothing
+        sdpa = dict(is_causal=True)
     launches = fa.flash_attention.launches
     out = _time_attention(
-        f"flash_attention in forward_train (layer 0: q, k, v "
-        f"{tuple(q.shape)}, causal)",
-        lambda: fa.flash_attention(q, k, v),
-        lambda: fa.flash_attention_ref(q, k, v),
-        lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True),
+        f"flash_attention {what}: q {tuple(q.shape)}, k, v "
+        f"{tuple(k.shape)}, {q.dtype}, causal, window {window})",
+        lambda: fa.flash_attention(q, k, v, window=window),
+        lambda: fa.flash_attention_ref(q, k, v, window=window),
+        lambda: F.scaled_dot_product_attention(qs, ks, vs, **sdpa),
         bound, 5, 2)
     fa.flash_attention.launches = launches        # timing does not count
     return out
 
 
-def _generate_checked(cfg, engine, batch, errs: dict) -> tuple:
+def _generate_checked(cfg, engine, batch, errs: dict,
+                      routes: "_Routes | None" = None,
+                      n_new: int = NEW_TOKENS) -> tuple:
     """A generate whose decode kernel is held to its plain version on every
-    layer's inputs at the first and last step (ATTN_TOL of the model's
-    dtype) and whose steps' logits are kept: (result, step logits, the
-    last step's (q, k cache, v cache, length) of every layer)."""
+    attention layer's inputs at the first and last step (ATTN_TOL of the
+    model's dtype) and whose steps' logits are kept (and, with ``routes``,
+    the decode steps' MoE routing): (result, step logits, the last step's
+    (q, k cache, v cache, length, window) of every attention layer)."""
     import repro_torch.serve.engine as engine_mod
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ops
     calls, held, step_logits = [0], [], []
+    n_attn = _attn_layers(cfg)
     decode_kernel, decode_step = ops.decode_attention, engine_mod.decode_step
 
     def checked(q, kc, vc, n, *, window=0, impl="ref"):
         out = decode_kernel(q, kc, vc, n, window=window, impl=impl)
-        step, layer = divmod(calls[0], cfg.n_layers)
+        step, layer = divmod(calls[0], n_attn)
         calls[0] += 1
-        if step in (0, NEW_TOKENS - 1):
+        if step in (0, n_new - 1):
             errs["decode_attention"] = max(
                 errs["decode_attention"], _check_close(
                     out, da.decode_attention_ref(q, kc, vc, n, window=window),
                     ATTN_TOL[cfg.dtype],
-                    f"{cfg.dtype} decode step {step} layer {layer}"))
-            if step == NEW_TOKENS - 1:        # the caches are final
-                held.append((q.clone(), kc, vc, n))
+                    f"{cfg.dtype} decode step {step} attention layer "
+                    f"{layer}"))
+            if step == n_new - 1:             # the caches are final
+                held.append((q.clone(), kc, vc, n, window))
         return out
 
     def recorded(*args):
+        if routes is not None:
+            routes.on = True
         logits, cache = decode_step(*args)
+        if routes is not None:
+            routes.on = False
         step_logits.append(logits.float())
         return logits, cache
 
     ops.decode_attention, engine_mod.decode_step = checked, recorded
     try:
-        res = engine.generate(batch, NEW_TOKENS)
+        res = engine.generate(batch, n_new)
     finally:
         ops.decode_attention, engine_mod.decode_step = decode_kernel, \
             decode_step
     return res, step_logits, held
 
 
-def _teacher_forced(cfg, params, batch, tokens, step_logits) -> float:
+def _teacher_forced(cfg, params, batch, tokens, step_logits,
+                    routes: "_Routes | None" = None,
+                    hold: bool = True) -> float:
     """The "ref" route teacher-forced over the kernel route's ``tokens``:
     every step's logits within LOGIT_RTOL[cfg.dtype] of the largest
-    |logit| of the kernel route's; returns the worst share."""
+    |logit| of the ref route's (printed only unless ``hold``); returns
+    the worst share.  With ``routes`` (the kernel route's decode-step MoE
+    routing), the ref route replays those expert choices
+    (:class:`_Replay`)."""
+    import contextlib
     import torch
     from repro_torch.models import transformer as tf
-    limit = LOGIT_RTOL[cfg.dtype]
+    limit = LOGIT_RTOL[cfg.dtype] if hold else None
     cfg_ref = dataclasses.replace(cfg, attn_impl="ref")
+    replay = _Replay(routes.calls) if routes is not None else None
     worst = 0.0
-    with torch.no_grad():
+    with torch.no_grad(), (replay or contextlib.nullcontext()):
         logits, cache = tf.prefill(cfg_ref, params, batch,
                                    cache_len=SERVE_CACHE)
         tok = torch.argmax(logits.float(), dim=-1).to(torch.int32)
-        for i in range(NEW_TOKENS):
+        for i in range(tokens.shape[1]):
+            if replay is not None:
+                replay.on = True
             logits, cache = tf.decode_step(cfg_ref, params, tok, cache)
+            if replay is not None:
+                replay.on = False
             want_l = logits.float()
             diff = float((step_logits[i] - want_l).abs().max())
             scale = float(want_l.abs().max())
             worst = max(worst, diff / scale)
-            if diff > limit * scale:
+            if limit is not None and diff > limit * scale:
                 raise AssertionError(f"{cfg.dtype} decode step {i}: kernel "
                                      f"route logits off the ref route's by "
                                      f"{diff} (largest |logit| {scale})")
             tok = tokens[:, i]
-    log(f"[serve] {cfg.dtype}: ref route teacher-forced over the "
-        f"{NEW_TOKENS} generated tokens: every step's logits within {limit} "
-        f"of the largest (worst {worst:.3e} of it)")
+    log(f"[{cfg.name}] {cfg.dtype}: ref route teacher-forced over the "
+        f"{tokens.shape[1]} generated tokens: each step's logits within "
+        f"{worst:.3e} of the largest ({_limit_note(cfg, limit)})"
+        + _replay_note(replay))
+    _check_replay(cfg, replay, limit)
     return worst
+
+
+def _limit_note(cfg, limit) -> str:
+    """How a comparison's share is used.  The families' bf16 comparisons
+    are printed, not held: bf16 rounding alone moves their logits past 2e-2
+    of the largest, while the decode kernel is within one ulp of plain on
+    every layer's inputs (``PERF.md`` §6); each family is held in
+    float32 instead (:func:`_family_cell_f32`)."""
+    return (f"limit {limit}" if limit is not None else
+            f"printed, not held: bf16 rounding through {cfg.n_layers} "
+            f"layers; held in float32")
+
+
+def _replay_note(replay) -> str:
+    if replay is None:
+        return ""
+    return (f"; the kernel route's expert choices replayed: they differ "
+            f"from the ref route's own in {replay.moved} of {replay.picks} "
+            f"(token, layer) picks, each within {replay.margin:.3e} of its "
+            f"own k-th gate")
+
+
+def _check_replay(cfg, replay, limit) -> None:
+    """Where the logits are held, every replayed expert choice must be a
+    near tie of the ref route's own (ROUTE_MARGIN)."""
+    if replay is not None and limit is not None \
+            and replay.margin > ROUTE_MARGIN:
+        raise AssertionError(f"{cfg.name}: a replayed expert choice is "
+                             f"{replay.margin} off the ref route's own")
 
 
 def _hold_decode_f32(layers: list, errs: dict) -> float:
     """The decode kernel against its plain version in float32 on every
-    layer's last-step inputs, at 2e-6; returns the largest difference."""
+    attention layer's last-step inputs, at 2e-6; returns the largest
+    difference."""
     from repro_torch.kernels import decode_attention as da
     launches, worst = da.decode_attention.launches, 0.0
-    for i, (q, kc, vc, n) in enumerate(layers):
+    for i, (q, kc, vc, n, window) in enumerate(layers):
         qf, kf, vf = q.float(), kc.float(), vc.float()
         worst = max(worst, _check_close(
-            da.decode_attention(qf, kf, vf, n),
-            da.decode_attention_ref(qf, kf, vf, n), ATTN_TOL["float32"],
-            f"float32 decode, last step, layer {i}"))
+            da.decode_attention(qf, kf, vf, n, window=window),
+            da.decode_attention_ref(qf, kf, vf, n, window=window),
+            ATTN_TOL["float32"],
+            f"float32 decode, last step, attention layer {i}"))
     errs["decode_attention"] = max(errs["decode_attention"], worst)
     da.decode_attention.launches = launches       # checks do not count
     return worst
@@ -3363,12 +3611,7 @@ def phase_serving(errs: dict) -> dict:
     if launches != want:
         raise AssertionError(f"decode_attention launched {launches} times "
                              f"in the generate, not {want}")
-    if not (res.tokens.shape == (SERVE_BATCH, NEW_TOKENS)
-            and bool(torch.isfinite(res.logprobs).all())
-            and float(res.logprobs.max()) <= 0.0
-            and int(res.tokens.min()) >= 0
-            and int(res.tokens.max()) < cfg.vocab_size):
-        raise AssertionError("generate: tokens or logprobs out of range")
+    _check_generated(cfg, res)
     _profile_decode(engine, batch)
 
     res2, step_logits, held = _generate_checked(cfg, engine, batch, errs)
@@ -3392,11 +3635,27 @@ def phase_serving(errs: dict) -> dict:
                        "flash_attention": flash["timing"]}}
 
 
-def _forward_vs_ref(cfg, params, batch) -> tuple:
+def _check_generated(cfg, res, n_new: int = NEW_TOKENS) -> None:
+    import torch
+    if not (res.tokens.shape == (SERVE_BATCH, n_new)
+            and bool(torch.isfinite(res.logprobs).all())
+            and float(res.logprobs.max()) <= 0.0
+            and int(res.tokens.min()) >= 0
+            and int(res.tokens.max()) < cfg.vocab_size):
+        raise AssertionError(f"{cfg.name} generate: tokens or logprobs out "
+                             f"of range")
+
+
+def _forward_vs_ref(cfg, params, batch, hold: bool = True) -> tuple:
     """forward_train over the prompts through the flash kernel (launches
-    counted, layer 0's q, k, v kept) against attn_impl="ref": logits
-    within LOGIT_RTOL[cfg.dtype] of the largest; returns (launches, layer
-    0's (q, k, v))."""
+    counted, the first attention layer's q, k, v and window kept) against
+    attn_impl="ref": every token's logits within LOGIT_RTOL[cfg.dtype] of
+    the largest, compared a batch row at a time (the logits take 5-8 GB at
+    the families' vocabularies).  For MoE the ref route replays the kernel
+    route's expert choices (:class:`_Replay`), each within ROUTE_MARGIN of
+    its own.  Unless ``hold``, the share is printed only.  Returns
+    (launches, (q, k, v, window) or None)."""
+    import contextlib
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
@@ -3406,13 +3665,16 @@ def _forward_vs_ref(cfg, params, batch) -> tuple:
 
     def capture(q, k, v, **kw):
         if not held:
-            held.append((q.clone(), k.clone(), v.clone()))
+            held.append((q.clone(), k.clone(), v.clone(), kw["window"]))
         return flash_kernel(q, k, v, **kw)
 
+    routes = _Routes() if cfg.n_experts else None
     fa.flash_attention.launches = 0
     ops.flash_attention = capture
     try:
-        with torch.no_grad():
+        with torch.no_grad(), (routes or contextlib.nullcontext()):
+            if routes is not None:
+                routes.on = True
             t0 = time.perf_counter()
             logits_k, _ = tf.forward_train(cfg, params, batch)
             torch.cuda.synchronize()
@@ -3420,50 +3682,67 @@ def _forward_vs_ref(cfg, params, batch) -> tuple:
     finally:
         ops.flash_attention = flash_kernel
     launches = fa.flash_attention.launches
-    with torch.no_grad():
+    replay = _Replay(routes.calls) if routes is not None else None
+    with torch.no_grad(), (replay or contextlib.nullcontext()):
+        if replay is not None:
+            replay.on = True
         t0 = time.perf_counter()
         logits_r, _ = tf.forward_train(
             dataclasses.replace(cfg, attn_impl="ref"), params, batch)
         torch.cuda.synchronize()
         fwd_ref_s = time.perf_counter() - t0
-    diff = float((logits_k.float() - logits_r.float()).abs().max())
-    scale = float(logits_r.float().abs().max())
-    limit = LOGIT_RTOL[cfg.dtype]
-    log(f"[serve] {cfg.dtype} forward_train over the prompts: attn_impl="
-        f"pallas {fwd_s:.4f} s ({launches} flash_attention launches), "
+    b = logits_r.shape[0]
+    with torch.no_grad():
+        diff = max(float((logits_k[i].float() - logits_r[i].float())
+                         .abs().max()) for i in range(b))
+        scale = max(float(logits_r[i].float().abs().max()) for i in range(b))
+        finite = all(bool(torch.isfinite(logits_k[i]).all())
+                     for i in range(b))
+    limit = LOGIT_RTOL[cfg.dtype] if hold else None
+    log(f"[{cfg.name}] {cfg.dtype} forward_train over {b} prompts: attn_impl"
+        f"=pallas {fwd_s:.4f} s ({launches} flash_attention launches), "
         f"attn_impl=ref {fwd_ref_s:.4f} s; logits differ by {diff} (largest "
-        f"|logit| {scale}, {diff / scale:.3e} of it; limit {limit})")
-    if launches != cfg.n_layers:
+        f"|logit| {scale}, {diff / scale:.3e} of it; "
+        f"{_limit_note(cfg, limit)})" + _replay_note(replay))
+    if launches != _attn_layers(cfg):
         raise AssertionError(f"forward_train launched flash_attention "
-                             f"{launches} times, not {cfg.n_layers}")
-    if not (bool(torch.isfinite(logits_k).all()) and diff <= limit * scale):
+                             f"{launches} times, not {_attn_layers(cfg)}")
+    if not finite or (limit is not None and diff > limit * scale):
         raise AssertionError(f"{cfg.dtype} forward_train: kernel route "
                              f"logits off the ref route's")
-    return launches, held[0]
+    _check_replay(cfg, replay, limit)
+    del logits_k, logits_r
+    return launches, (held[0] if held else None)
 
 
-def _serve_forward(cfg, params, batch, errs: dict) -> dict:
-    """forward_train through the flash kernel against attn_impl="ref",
-    then the kernel held to plain on layer 0's inputs (bf16 and cast to
-    float32; repeat_kv and grouped) and timed there."""
+def _serve_forward(cfg, params, batch, errs: dict,
+                   hold: bool = True) -> dict:
+    """forward_train through the flash kernel against attn_impl="ref"
+    (:func:`_forward_vs_ref`), then the kernel held to plain on the first
+    attention layer's inputs (bf16 and cast to float32; repeat_kv and
+    grouped) and timed there."""
     import torch
     from repro_torch.kernels import flash_attention as fa
 
-    launches, (q, k, v) = _forward_vs_ref(cfg, params, batch)
-    # attn_layout="grouped": the same layer on its 4 kv heads (g = 8), which
-    # repeat_kv had expanded to 32; the kernel gives the same bits.
+    launches, inputs = _forward_vs_ref(cfg, params, batch, hold)
+    if inputs is None:
+        return {"launches": launches, "timing": None}
+    q, k, v, window = inputs
+    # attn_layout="grouped": the same layer on its kv heads (g = H / KV),
+    # which repeat_kv had expanded to H; the kernel gives the same bits.
     g = cfg.n_heads // cfg.n_kv_heads
     kg, vg = k[:, :, ::g].contiguous(), v[:, :, ::g].contiguous()
     worst = {}
     for dtype in ("bfloat16", "float32"):
         x = [t.to(getattr(torch, dtype)) for t in (q, k, v, kg, vg)]
-        out = fa.flash_attention(*x[:3])
-        out_g = fa.flash_attention(x[0], x[3], x[4])
+        out = fa.flash_attention(*x[:3], window=window)
+        out_g = fa.flash_attention(x[0], x[3], x[4], window=window)
         worst[dtype] = max(
-            _check_close(out, fa.flash_attention_ref(*x[:3]),
+            _check_close(out, fa.flash_attention_ref(*x[:3], window=window),
                          ATTN_TOL[dtype],
                          f"flash_attention at full width, {dtype}"),
-            _check_close(out_g, fa.flash_attention_ref(x[0], x[3], x[4]),
+            _check_close(out_g, fa.flash_attention_ref(x[0], x[3], x[4],
+                                                       window=window),
                          ATTN_TOL[dtype],
                          f"flash_attention at full width, grouped, {dtype}"))
         if not torch.equal(out_g, out):
@@ -3471,12 +3750,16 @@ def _serve_forward(cfg, params, batch, errs: dict) -> dict:
                                  f"{dtype}")
         errs["flash_attention"] = max(errs["flash_attention"], worst[dtype])
         del x, out, out_g
-    log(f"[serve] flash_attention on layer 0's inputs: kernel == plain to "
-        f"one bf16 ulp in bf16 and within 2e-6 cast to float32, with "
-        f"repeat_kv (g = 1) and grouped (g = {g}), and the two kernel "
-        f"outputs ==; largest differences {worst}")
+    log(f"[{cfg.name}] flash_attention on the first attention layer's inputs"
+        f" (window {window}): kernel == plain to one bf16 ulp in bf16 and "
+        f"within 2e-6 cast to float32, with repeat_kv (g = 1) and grouped "
+        f"(g = {g}), and the two kernel outputs ==; largest differences "
+        f"{worst}")
     fa.flash_attention.launches = launches      # checks do not count
-    return {"launches": launches, "timing": _time_flash(q, k, v)}
+    return {"launches": launches,
+            "timing": _time_flash(q, k, v, window,
+                                  f"in {cfg.name}'s forward_train (the first "
+                                  f"attention layer")}
 
 
 def phase_serving_f32(errs: dict) -> None:
@@ -3500,9 +3783,14 @@ def phase_serving_f32(errs: dict) -> None:
     _free_cuda()
 
 
+SERVE_CUDA_CPU = ("llama3.2-1b", "qwen2-moe-a2.7b", "recurrentgemma-2b",
+                  "xlstm-125m")
+
+
 def phase_serving_cuda_cpu() -> None:
-    """Reduced llama3.2-1b, float32, served on CUDA (the decode kernel) and
-    on the CPU (its plain version) from one set of weights."""
+    """Reduced configs in float32 (llama3.2-1b, then the three families),
+    served on CUDA (the decode kernel) and on the CPU (its plain version)
+    from one set of weights."""
     import numpy as np
     import torch
     from repro_torch.configs import get
@@ -3511,30 +3799,249 @@ def phase_serving_cuda_cpu() -> None:
     from repro_torch.serve import ServingEngine
     from repro_torch.tree import tree_map
 
-    cfg = dataclasses.replace(get("llama3.2-1b").reduced(), dtype="float32",
-                              attn_impl="pallas")
-    params = init_params(cfg, seed=0)
-    toks = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (3, 24)).astype(np.int32))
+    for arch in SERVE_CUDA_CPU:
+        cfg = dataclasses.replace(get(arch).reduced(), dtype="float32",
+                                  attn_impl="pallas")
+        params = init_params(cfg, seed=0)
+        toks = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (3, 24)).astype(np.int32))
+        out = {}
+        for device, p in (("cuda", params),
+                          ("cpu", tree_map(lambda t: t.cpu(), params))):
+            launches = da.decode_attention.launches
+            out[device] = ServingEngine(cfg, p, cache_len=48).generate(
+                {"tokens": toks.to(device)}, 8)
+            out[device + "_launches"] = da.decode_attention.launches \
+                - launches
+        gpu, cpu = out["cuda"], out["cpu"]
+        same = torch.equal(gpu.tokens.cpu(), cpu.tokens)
+        lp = float((gpu.logprobs.cpu() - cpu.logprobs).abs().max())
+        log(f"[serve-cuda-cpu] {cfg.name} float32, batch 3, prompt 24, 8 new:"
+            f" greedy tokens CUDA == CPU {same}, logprobs differ by "
+            f"{lp:.3e}; decode_attention launches cuda "
+            f"{out['cuda_launches']}, cpu {out['cpu_launches']}")
+        if not same or lp > 1e-4:
+            raise AssertionError(f"reduced serving of {cfg.name}: CUDA and "
+                                 f"CPU disagree")
+        if out["cuda_launches"] != _attn_layers(cfg) * 8 \
+                or out["cpu_launches"]:
+            raise AssertionError(f"reduced serving of {cfg.name}: the CUDA "
+                                 f"run did not go through the decode kernel")
+
+
+# -- the families phase: MoE, the RG-LRU hybrid and xLSTM at full width --------
+
+FAMILY_ARCHS = ("qwen2-moe-a2.7b", "recurrentgemma-2b", "xlstm-125m")
+# (prompt, new tokens) of a cell that cannot take phase 11's 2,048 + 128.
+# The reference's RG-LRU gate exponent has the wrong sign (ROADMAP Queue C
+# R2): log a = -8 r log sigmoid(Lambda) >= 0, so its state grows by up to
+# e^0.42 a token and overflows float32 within a few hundred tokens; the
+# port copies it.  64 + 32 tokens keep the growth under e^41.
+FAMILY_SHAPES = {"recurrentgemma-2b": (64, 32)}
+
+
+def _step_bytes(cfg, params, length: int) -> tuple[int, int]:
+    """Least bytes one decode step moves at ``length`` cached tokens:
+    every weight read once (the embedding table's batch rows only, unless
+    the head is tied to it), the valid k and v of every attention layer,
+    and the recurrent states read and written.  Returns (all of it, the
+    routed experts' weights alone)."""
+    from repro_torch.tree import flatten, leaf_names
+    total = experts = 0
+    for name, t in zip(leaf_names(params), flatten(params)):
+        nbytes = t.numel() * t.element_size()
+        if name == "['embed']" and not cfg.tie_embeddings:
+            nbytes = SERVE_BATCH * cfg.d_model * t.element_size()
+        total += nbytes
+        if "['experts']" in name:
+            experts += nbytes
+    itemsize = 2 if cfg.dtype == "bfloat16" else 4
+    for kind in cfg.blocks:
+        if kind in ("attn", "local"):
+            rows = min(length, cfg.attn_window) if kind == "local" else length
+            total += 2 * SERVE_BATCH * rows * cfg.n_kv_heads * cfg.head_dim \
+                * itemsize
+        elif kind == "rec":
+            total += 2 * SERVE_BATCH * cfg.lru_width \
+                * (4 + (cfg.conv1d_width - 1) * itemsize)
+        elif kind == "mlstm":
+            hd = 2 * cfg.d_model // cfg.n_heads
+            total += 2 * SERVE_BATCH * cfg.n_heads * (hd * hd + hd + 1) * 4
+        else:
+            total += 2 * SERVE_BATCH * 4 * cfg.d_model * 4
+    return total, experts
+
+
+def _prefill_split(cfg, engine, batch) -> dict:
+    """One prefill with each block function timed (synchronised before and
+    after each call): seconds per function, and the prefill's."""
+    import torch
+    from repro_torch.models import transformer as tf
+    names = ("chunked_attention", "moe_apply", "rglru_block_apply",
+             "mlstm_block_apply", "slstm_block_apply")
+    orig = {n: getattr(tf, n) for n in names}
+    spent = dict.fromkeys(names, 0.0)
+
+    def timed(name):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig[name](*args, **kw)
+            torch.cuda.synchronize()
+            spent[name] += time.perf_counter() - t0
+            return out
+        return run
+
+    for n in names:
+        setattr(tf, n, timed(n))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.prefill(batch)
+        torch.cuda.synchronize()
+        spent["prefill"] = time.perf_counter() - t0
+    finally:
+        for n in names:
+            setattr(tf, n, orig[n])
+    return {k: v for k, v in spent.items() if v}
+
+
+def _family_cell(arch: str, errs: dict) -> dict:
+    """One family at its published widths, served as the tinyllama cell
+    is (bf16, attn_impl="pallas", batch 8, prompt 2,048, 128 new tokens,
+    greedy, cache_len 2,176): timed and counted generate, a profiled
+    window, a checked generate with the ref route teacher-forced over it,
+    forward_train through the flash kernel against the ref route."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    tag = f"[{arch}]"
+    prompt, n_new = FAMILY_SHAPES.get(arch, (PROMPT, NEW_TOKENS))
+    cfg, params, batch, engine = _serving_setup("bfloat16", arch, tag,
+                                                prompt, n_new)
+    n_attn = _attn_layers(cfg)
+    engine.generate(batch, 2)                      # warm up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.prefill(batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    split = _prefill_split(cfg, engine, batch)
+    log(f"{tag} prefill split (each block function synchronised; its own "
+        f"prefill {split['prefill']:.4f} s): "
+        + ", ".join(f"{k} {v:.4f} s" for k, v in split.items()
+                    if k != "prefill"))
+
+    torch.cuda.reset_peak_memory_stats()
+    da.decode_attention.launches = 0
+    fa.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    res = engine.generate(batch, n_new)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = da.decode_attention.launches
+    flash_in_generate = fa.flash_attention.launches
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = (gen_s - prefill_s) / n_new * 1e3
+    step_bytes, expert_bytes = _step_bytes(cfg, params, prompt + n_new)
+    bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"{tag} prefill {prefill_s:.4f} s "
+        f"({SERVE_BATCH * prompt / prefill_s:.1f} prompt tokens/s); generate "
+        f"{gen_s:.4f} s: decode {step_ms:.4f} ms per step, "
+        f"{SERVE_BATCH * n_new / gen_s:.1f} generated tokens/s "
+        f"(prefill included), {SERVE_BATCH / step_ms * 1e3:.1f} tokens/s in "
+        f"decode; peak device memory {peak / 1e9:.3f} GB; decode_attention "
+        f"launches {launches}, flash_attention launches {flash_in_generate}")
+    log(f"{tag} decode step {step_ms:.4f} ms beside its bytes bound "
+        f"{bound_ms:.4f} ms ({step_bytes} B at {HBM_BYTES_PER_S:.3g} B/s at "
+        f"the last step's {prompt + n_new} tokens; the routed experts' "
+        f"weights {expert_bytes} B of it, "
+        f"{expert_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms): {bound_ms / step_ms:.4f}"
+        f" of the bound")
+    if launches != n_attn * n_new or flash_in_generate:
+        raise AssertionError(f"{cfg.name}: decode_attention launched "
+                             f"{launches} times in the generate, not "
+                             f"{n_attn * n_new} (flash "
+                             f"{flash_in_generate})")
+    _check_generated(cfg, res, n_new)
+    busy = _profile_decode(engine, batch, tag=tag)
+
+    routes = _Routes() if cfg.n_experts else None
+    import contextlib
+    with routes or contextlib.nullcontext():
+        res2, step_logits, held = _generate_checked(cfg, engine, batch, errs,
+                                                    routes, n_new)
+        if not torch.equal(res2.tokens, res.tokens):
+            raise AssertionError(f"{cfg.name}: the checked generate gave "
+                                 f"other tokens")
+        if held:
+            err32 = _hold_decode_f32(held, errs)
+            log(f"{tag} checked generate: decode_attention kernel == plain "
+                f"to one bf16 ulp on all {n_attn} attention layers at steps "
+                f"1 and {n_new}, and within 2e-6 on the last step's "
+                f"inputs cast to float32 (largest difference {err32}); same "
+                f"tokens as the counted run")
+        _teacher_forced(cfg, params, batch, res.tokens, step_logits, routes,
+                        hold=False)
+    del step_logits
+    decode_timing = _time_decode(held, f"{cfg.name}'s last decode step") \
+        if held else None
+    flash = _serve_forward(cfg, params, batch, errs, hold=False)
+    del engine, params, batch, res, res2, held
+    _free_cuda()
+    return {"decode_attention": launches, "flash_attention": flash["launches"],
+            "decode_timing": decode_timing, "flash_timing": flash["timing"],
+            "prefill_s": prefill_s, "step_ms": step_ms,
+            "step_bound_ms": bound_ms, "peak_gb": peak / 1e9,
+            "busy": busy}
+
+
+def _family_cell_f32(arch: str, errs: dict) -> None:
+    """The cell's comparisons in float32, where rounding leaves room for a
+    limit that separates a faulty kernel (as phase 12 for tinyllama): the
+    checked generate (decode kernel within 2e-6 of plain at the first and
+    last step) with the ref route teacher-forced over its tokens, and
+    forward_train through the flash kernel over the first two prompts
+    (qwen2-moe-a2.7b's float32 weights take 60.6 GB), both within
+    LOGIT_RTOL["float32"] of the ref route's largest logit, MoE choices
+    replayed."""
+    import contextlib
+    import torch
+    tag = f"[{arch}]"
+    prompt, n_new = FAMILY_SHAPES.get(arch, (PROMPT, NEW_TOKENS))
+    cfg, params, batch, engine = _serving_setup("float32", arch, tag,
+                                                prompt, n_new)
+    routes = _Routes() if cfg.n_experts else None
+    with routes or contextlib.nullcontext():
+        res, step_logits, held = _generate_checked(cfg, engine, batch, errs,
+                                                   routes, n_new)
+        del held
+        _check_generated(cfg, res, n_new)
+        _teacher_forced(cfg, params, batch, res.tokens, step_logits, routes)
+    del step_logits, engine
+    _forward_vs_ref(cfg, params, {"tokens": batch["tokens"][:2]})
+    del params, batch, res
+    _free_cuda()
+
+
+def phase_families(errs: dict) -> dict:
+    """qwen2-moe-a2.7b, recurrentgemma-2b and xlstm-125m at their published
+    widths through the port's serving path (:func:`_family_cell`)."""
     out = {}
-    for device, p in (("cuda", params),
-                      ("cpu", tree_map(lambda t: t.cpu(), params))):
-        launches = da.decode_attention.launches
-        out[device] = ServingEngine(cfg, p, cache_len=48).generate(
-            {"tokens": toks.to(device)}, 8)
-        out[device + "_launches"] = da.decode_attention.launches - launches
-    gpu, cpu = out["cuda"], out["cpu"]
-    same = torch.equal(gpu.tokens.cpu(), cpu.tokens)
-    lp = float((gpu.logprobs.cpu() - cpu.logprobs).abs().max())
-    log(f"[serve-cuda-cpu] {cfg.name} float32, batch 3, prompt 24, 8 new: "
-        f"greedy tokens CUDA == CPU {same}, logprobs differ by {lp:.3e}; "
-        f"decode_attention launches cuda {out['cuda_launches']}, cpu "
-        f"{out['cpu_launches']}")
-    if not same or lp > 1e-4:
-        raise AssertionError("reduced serving: CUDA and CPU disagree")
-    if out["cuda_launches"] != cfg.n_layers * 8 or out["cpu_launches"]:
-        raise AssertionError("reduced serving: the CUDA run did not go "
-                             "through the decode kernel")
+    for arch in FAMILY_ARCHS:
+        t0 = time.perf_counter()
+        out[arch] = _family_cell(arch, errs)
+        t1 = time.perf_counter()
+        _family_cell_f32(arch, errs)
+        c = out[arch]
+        log(f"[{arch}] on {_smi()}: prefill {c['prefill_s']:.4f} s, decode "
+            f"{c['step_ms']:.4f} ms a step (bound {c['step_bound_ms']:.4f} "
+            f"ms), peak {c['peak_gb']:.3f} GB, launches decode_attention "
+            f"{c['decode_attention']}, flash_attention "
+            f"{c['flash_attention']}; cell {t1 - t0:.1f} s in bf16, "
+            f"{time.perf_counter() - t1:.1f} s in float32")
+    return out
 
 
 def main() -> int:
@@ -3582,10 +4089,13 @@ def _main(t_start: float, device: dict, children: list) -> int:
     log(f"[done] trainer phases {time.perf_counter() - t_start:.1f} s")
     _free_cuda()        # the trainers' hook cycles still hold device state
     errs.update(flash_attention=0.0, decode_attention=0.0)
-    phase_attention_kernels(errs)
+    hd256 = phase_attention_kernels(errs)
     serving = phase_serving(errs)
     phase_serving_f32(errs)
     phase_serving_cuda_cpu()
+    log(f"[done] serving phases {time.perf_counter() - t_start:.1f} s")
+    families = phase_families(errs)
+    log(f"[done] families phase {time.perf_counter() - t_start:.1f} s")
     finish_cpu_rows(children, experiments["cuda_rows"])
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     kernels = [{
@@ -3623,7 +4133,15 @@ def _main(t_start: float, device: dict, children: list) -> int:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces, "launches": serving["launches"][name],
-            "max_abs_err": errs[name], **serving["timing"][name]})
+            "max_abs_err": errs[name], **serving["timing"][name],
+            "families_launches": {a: c[name] for a, c in families.items()},
+            "hd256": hd256[name],
+            "recurrentgemma_2b": families["recurrentgemma-2b"][
+                "decode_timing" if name == "decode_attention"
+                else "flash_timing"],
+            "qwen2_moe_a2_7b": families["qwen2-moe-a2.7b"][
+                "decode_timing" if name == "decode_attention"
+                else "flash_timing"]})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": device}))
     return 0

@@ -8,8 +8,8 @@ package; ``pairs()`` enumerates the assigned (arch x shape) grid,
 honouring the documented skips (encoder-only archs have no decode step).
 
 Resolving a config does not mean the port runs its model:
-``models/transformer.py::check_supported`` raises for the families whose
-blocks are not ported yet, naming the ROADMAP item.  The
+``models/transformer.py::check_supported`` raises for the families not
+ported yet (M-RoPE and encoder-only inputs), naming the ROADMAP item.  The
 fleet sizes jobs from any of them (``fleet/spec.py::job_from_model``).
 """
 

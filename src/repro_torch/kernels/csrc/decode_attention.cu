@@ -26,11 +26,14 @@
 // Design: one launch.  A cluster of kCluster = 8 blocks serves one (batch,
 // kv head): 256 blocks at B 8, KV 4 on the card's 132 SMs.  Block rank c
 // takes the c-th contiguous eighth of the keys that are read and streams
-// their k and v rows through a ring of kStages = 3 shared-memory stages of
-// 64 keys by cp.async 16-byte copies (16 KB a stage at hd 64 bf16, two
-// tiles in flight while one is used), rows stored with their 16-byte
-// chunks swizzled by the row so that lanes on different rows hit different
-// banks.  A block has 8 warps.  Per tile, a thread per (key, quarter of the
+// their k and v rows through a ring of shared-memory stages of 64 keys by
+// cp.async 16-byte copies (16 KB a stage at hd 64 bf16).  The ring holds
+// as many stages as fit the block's 227 KB beside the rest, at most 3 (two
+// tiles in flight while one is used): 3 up to hd 128, 2 at hd 256 bf16 (64
+// KB a stage) and 1 at hd 256 fp32 (128 KB a stage, the next tile loaded
+// only once the block is done with this one).  Rows are stored with their
+// 16-byte chunks swizzled by the row so that lanes on different rows hit
+// different banks.  A block has 8 warps.  Per tile, a thread per (key, quarter of the
 // heads) computes the scores, each k row read once for its g heads (the
 // GQA saving the TPU kernel gets from its (g, hd) q block); a warp per head
 // keeps the block's online softmax (m, l) in f32; and a thread per (4 dims,
@@ -69,7 +72,8 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kCluster = 8;         // blocks per (batch, kv head)
 constexpr int kTile = 64;           // keys per stage
-constexpr int kStages = 3;
+constexpr int kMaxStages = 3;
+constexpr int kSmemMax = 227 * 1024;    // dynamic shared memory of a block
 constexpr int kQuarters = 4;        // p @ v: each thread takes 16 of 64 keys
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -143,8 +147,15 @@ struct Layout {
   static constexpr int kScW = kTile + 1;                  // score row
   // Shared memory, in bytes from the base: the k/v ring (after the loop,
   // the p @ v quarters' sums), q rows (f32, times scale), scores / p,
-  // per-head corr, and the block's partial (m, l, acc).
-  static constexpr int kRing = kStages * 2 * kTile * kRowBytes;
+  // per-head corr, and the block's partial (m, l, acc).  The ring takes
+  // the stages that fit beside the rest (kRest), at most kMaxStages.
+  static constexpr int kStageBytes = 2 * kTile * kRowBytes;
+  static constexpr int kRest = G * HD * 4 + G * kScW * 4 + 3 * G * 4 +
+                               G * HD * 4;
+  static constexpr int kFit = (kSmemMax - kRest) / kStageBytes;
+  static constexpr int kStages = kFit < kMaxStages ? kFit : kMaxStages;
+  static_assert(kStages >= 1, "one k/v stage fits shared memory");
+  static constexpr int kRing = kStages * kStageBytes;
   static constexpr int kQ = kRing;
   static constexpr int kSc = kQ + G * HD * 4;
   static constexpr int kCorr = kSc + G * kScW * 4;
@@ -152,6 +163,7 @@ struct Layout {
   static constexpr int kL = kM + G * 4;
   static constexpr int kAcc = kL + G * 4;
   static constexpr int kBytes = kAcc + G * HD * 4;
+  static_assert(kBytes <= kSmemMax, "a block's shared memory fits 227 KB");
   static_assert(kQuarters * G * HD * 4 <= kRing, "quarter sums fit the ring");
   // Byte offset of chunk c of row r of k (kv = 0) or v (kv = 1) in stage st.
   static __device__ __forceinline__ int at(int st, int kv, int r, int c) {
@@ -201,9 +213,10 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   const T* kbase = kc + ((long long)b * s * kv + kvh) * HD;
   const T* vbase = vc + ((long long)b * s * kv + kvh) * HD;
 
-  // Stage tile t (keys k0 + 64 t ..) into ring slot t % kStages.
+  constexpr int S = L::kStages;
+  // Stage tile t (keys k0 + 64 t ..) into ring slot t % S.
   auto load = [&](int t) {
-    const int st = t % kStages;
+    const int st = t % S;
 #pragma unroll
     for (int it = 0; it < 2 * kTile * L::kChunks / kThreads; ++it) {
       const int i = tid + it * kThreads;
@@ -216,8 +229,9 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       cp_async16(ring + L::at(st, kvsel, r, c), src, valid);
     }
   };
+  // S - 1 tiles ahead (one stage: tile 0, the next after each tile).
 #pragma unroll
-  for (int t = 0; t < kStages - 1; ++t) {
+  for (int t = 0; t < (S > 1 ? S - 1 : 1); ++t) {
     if (t < n_tiles) load(t);
     asm volatile("cp.async.commit_group;\n" ::);
   }
@@ -247,11 +261,14 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
 
   for (int t = 0; t < n_tiles; ++t) {
-    const int st = t % kStages;
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2) : "memory");
+    const int st = t % S;
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(S > 1 ? S - 2 : 0)
+                 : "memory");
     __syncthreads();              // tile t is in; tile t - 1 is done with
-    if (t + kStages - 1 < n_tiles) load(t + kStages - 1);
-    asm volatile("cp.async.commit_group;\n" ::);
+    if constexpr (S > 1) {
+      if (t + S - 1 < n_tiles) load(t + S - 1);
+      asm volatile("cp.async.commit_group;\n" ::);
+    }
 
     // Scores: key j against heads (tid / 64) + 4 i; the k row is read once
     // for them, a 16-byte chunk at a time.
@@ -335,6 +352,11 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[i][e] = fmaf(p, vx[e], acc[i][e]);
       }
+    }
+    if constexpr (S == 1) {       // the one stage is free again
+      __syncthreads();
+      if (t + 1 < n_tiles) load(t + 1);
+      asm volatile("cp.async.commit_group;\n" ::);
     }
   }
 
@@ -436,6 +458,9 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* kc,
     case 128:
       return dispatch_g<T, 128>(q, kc, vc, length, out, b, s, h, kv, window,
                                 scale, stream);
+    case 256:
+      return dispatch_g<T, 256>(q, kc, vc, length, out, b, s, h, kv, window,
+                                scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -444,7 +469,7 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* kc,
 }  // namespace
 
 // Returns the CUDA error of the launch (0 on success).  dtype: 0 fp32,
-// 1 bf16; hd 32, 64 or 128; H / KV at most 16.  The wrapper checks shapes
+// 1 bf16; hd 32, 64, 128 or 256; H / KV at most 16.  The wrapper checks shapes
 // and that both caches start on a 16-byte boundary (cp.async).
 extern "C" int decode_attention_fwd(const void* q, const void* kc,
                                     const void* vc, const int* length,

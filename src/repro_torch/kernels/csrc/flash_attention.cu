@@ -39,7 +39,8 @@
 // shared-memory stages by cp.async 16-byte copies (rows past Sq or Skv
 // zero-filled), each tile stored in the 128-byte swizzle that wgmma's
 // shared-memory descriptors read (hd 32 is zero-padded to 64 columns, hd
-// 128 is two swizzle atoms).
+// 128 is two swizzle atoms, hd 256 four: 161 KB of shared memory a block,
+// one block an SM).
 //   S = Q K^T: wgmma m64n64k16, bf16 operands from shared memory, f32
 //     accumulators, hd / 16 k-steps; the scale is applied to the f32
 //     scores after the product (the plain version's f32(q) * scale at hd
@@ -47,7 +48,8 @@
 //   Online softmax on the accumulator registers: a row lives in the 4
 //     lanes of a quad, reduced with two shuffles; expf, m/l/acc in f32.
 //   O += P V: wgmma m64n{hd}k16 with P from registers and V from shared
-//     memory (transposed operand), f32 accumulators.  P is f32 and the
+//     memory (transposed operand), f32 accumulators; at hd 256 two
+//     m64n128k16 halves, O taking 128 registers a thread.  P is f32 and the
 //     tensor cores take bf16, so P goes in three bf16 parts, p1 = bf16(p),
 //     p2 = bf16(p - p1), p3 = bf16(p - p1 - p2), each against the same V
 //     tile: v is bf16 and exact, the parts carry p to about 2^-24, and the
@@ -105,18 +107,33 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 constexpr int kBK = 32;             // keys per tile: one per lane
 
+// The fp32 kernel's shared memory (dynamic: 84 KB at hd 256), in floats
+// from the base: the q tile, the k tile (rows padded to hd + 1), the v
+// tile and each warp's p rows.
+template <int HD, int R>
+struct F32Smem {
+  static constexpr int kBQ = kWarps * R;
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kBQ * HD;
+  static constexpr int kV = kK + kBK * (HD + 1);
+  static constexpr int kP = kV + kBK * HD;
+  static constexpr int kBytes = (kP + kWarps * R * kBK) * 4;
+};
+
 template <int HD, int R>
 __global__ void __launch_bounds__(kThreads)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
                  int sq, int skv, int h, int kv, int causal, int window,
                  int q_offset, float scale) {
-  constexpr int BQ = kWarps * R;
+  using L = F32Smem<HD, R>;
+  constexpr int BQ = L::kBQ;
   constexpr int DPL = HD / 32;      // output dims per lane
-  __shared__ float qs[BQ][HD];
-  __shared__ float ks[kBK][HD + 1];
-  __shared__ float vs[kBK][HD];
-  __shared__ float ps[kWarps][R][kBK];
+  extern __shared__ __align__(16) float f32_smem[];
+  float (*qs)[HD] = reinterpret_cast<float (*)[HD]>(f32_smem + L::kQ);
+  float (*ks)[HD + 1] = reinterpret_cast<float (*)[HD + 1]>(f32_smem + L::kK);
+  float (*vs)[HD] = reinterpret_cast<float (*)[HD]>(f32_smem + L::kV);
+  float (*ps)[R][kBK] = reinterpret_cast<float (*)[R][kBK]>(f32_smem + L::kP);
 
   const int q0 = blockIdx.x * BQ;
   const int head = blockIdx.y;
@@ -233,12 +250,17 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        void* out, int b, int sq, int skv, int h, int kv,
                        int causal, int window, int q_offset, float scale,
                        cudaStream_t stream) {
-  // R rows per warp: 8 keeps shared memory under the 48 KB static limit
-  // up to hd 64; hd 128 takes 4.
+  // R rows per warp: 8 up to hd 64, 4 above (43 KB of shared memory at hd
+  // 128, 84 KB at hd 256).
   constexpr int R = HD <= 64 ? 8 : 4;
   constexpr int BQ = kWarps * R;
+  constexpr int smem = F32Smem<HD, R>::kBytes;
+  auto kernel = flash_f32_kernel<HD, R>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
   dim3 grid((sq + BQ - 1) / BQ, h, b);
-  flash_f32_kernel<HD, R><<<grid, kThreads, 0, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), sq, skv, h, kv,
       causal, window, q_offset, scale);
@@ -378,6 +400,47 @@ __device__ __forceinline__ void load_tile(uint32_t dst,
     const __nv_bfloat16* src = base + (long long)(valid ? row : 0) * row_stride
                                + c * 8;
     cp_async16(dst + swz(r, c), src, valid);
+  }
+}
+
+// O (64 x 256, f32: o[128] per thread) += P V at hd 256, P (the
+// accumulator layout's s[32], overwritten) in kParts bf16 parts.  O is two
+// n128 halves (V's atoms 0-1 and 2-3); the parts go one at a time, each
+// waited for before the next is split, so that one part's fragments (16
+// registers) live beside O instead of all three (48).
+__device__ __forceinline__ void pv_parts_hd256(float* o, float* s,
+                                               uint32_t vtile) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) fence_reg(o[i]);
+#pragma unroll
+  for (int x = 0; x < kParts; ++x) {
+    uint32_t a[kBN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const int c = 2 * kk + f / 2, i = f % 2;
+        float& r0 = s[4 * c + 2 * i];
+        float& r1 = s[4 * c + 2 * i + 1];
+        const uint32_t w = pack_bf16(r0, r1);
+        a[kk][f] = w;
+        const __nv_bfloat162 pb = *reinterpret_cast<const __nv_bfloat162*>(&w);
+        r0 = r0 - __low2float(pb);
+        r1 = r1 - __high2float(pb);
+        fence_reg(a[kk][f]);
+      }
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+      const uint32_t at = vtile + kk * 2048;
+      wgmma_rs_n128(o, a[kk], gmma_desc(at, kAtom, 1024));
+      wgmma_rs_n128(o + 64, a[kk], gmma_desc(at + 2 * kAtom, kAtom, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait0();
+#pragma unroll
+    for (int i = 0; i < 128; ++i) fence_reg(o[i]);
   }
 }
 
@@ -524,6 +587,9 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
 
+    if constexpr (HDP == 256) {
+      pv_parts_hd256(o, s, vs(st));
+    } else {
     // P in kParts bf16 parts, as wgmma A fragments: part x, k-step kk
     // (keys 16 kk ..), registers a[x][kk][0..3].
     uint32_t a[kParts][kBN / 16][4];
@@ -571,6 +637,7 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     wgmma_wait0();
 #pragma unroll
     for (int i = 0; i < NO; ++i) fence_reg(o[i]);
+    }
     __syncthreads();                          // stage st is free again
   }
 
@@ -627,7 +694,7 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
 }  // namespace
 
 // Returns the CUDA error of the launch (0 on success).  dtype: 0 fp32,
-// 1 bf16; hd 32, 64 or 128; the wrapper checks shapes, contiguity and (for
+// 1 bf16; hd 32, 64, 128 or 256; the wrapper checks shapes, contiguity and (for
 // bf16's 16-byte copies) that q, k and v start on a 16-byte boundary.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, int dtype,
@@ -645,6 +712,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                         window, q_offset, scale, s);
     case 128:
       return launch<128>(dtype, q, k, v, out, b, sq, skv, h, kv, causal,
+                         window, q_offset, scale, s);
+    case 256:
+      return launch<256>(dtype, q, k, v, out, b, sq, skv, h, kv, causal,
                          window, q_offset, scale, s);
     default:
       return cudaErrorInvalidValue;

@@ -12,7 +12,8 @@ pass runs attention through this module, as the JAX package's
   version, a CUDA tensor to the hand-written kernel in
   ``csrc/flash_attention.cu`` (built on first use by :mod:`._build`):
   bfloat16 inputs on the tensor cores (wgmma, P in three bf16 parts),
-  float32 inputs on the CUDA cores.  A
+  float32 inputs on the CUDA cores, at head dims 32, 64, 128 and 256
+  (:data:`HEAD_DIMS`; the Pallas kernel takes any).  A
   CUDA call launches the kernel or raises; it never falls back.  Each
   launch adds one to ``flash_attention.launches``.  The kernel is forward
   only, like the Pallas kernel: a CUDA call on inputs that need a gradient
@@ -32,7 +33,7 @@ from ._build import device_of, entry
 __all__ = ["HEAD_DIMS", "NEG_INF", "bytes_moved", "flash_attention",
            "flash_attention_ref", "flops", "valid_pairs"]
 
-HEAD_DIMS = (32, 64, 128)           # the head dims the kernels are built for
+HEAD_DIMS = (32, 64, 128, 256)      # the head dims the kernels are built for
 
 # dtype codes of the C entry points.
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}

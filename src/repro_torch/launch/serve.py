@@ -5,7 +5,10 @@ the card (or the CPU).
         --batch 4 --prompt-len 64 --new-tokens 32
 
 The same flags as the JAX package's ``repro.launch.serve``, plus
-``--device`` (default: CUDA; ``--device cpu`` runs on the CPU).  Like the
+``--device`` (default: CUDA; ``--device cpu`` runs on the CPU).  Every
+decoder family the port runs is served: dense, MoE (``qwen2-moe-a2.7b``,
+``qwen3-moe-235b-a22b``), the RG-LRU hybrid (``recurrentgemma-2b``) and
+xLSTM (``xlstm-125m``).  Like the
 reference, the CLI always serves the reduced config with the config's
 ``attn_impl`` (logged in ROADMAP Queue C); a full-width run, or one
 through the kernels, goes through :class:`ServingEngine` directly, as

@@ -4,7 +4,8 @@
         --steps 200 --seq 128 --batch 8 --faults --workdir "$TMPDIR/ck"
 
 The same flags as the JAX package's ``repro.launch.train``, plus
-``--device`` (default: CUDA; ``--device cpu`` runs on the CPU).  Like the
+``--device`` (default: CUDA; ``--device cpu`` runs on the CPU).  It trains
+every decoder family the port runs (dense, MoE, RG-LRU, xLSTM).  Like the
 reference, ``--reduced`` is declared ``store_true`` with default True, so
 the CLI always runs the reduced config (logged in ROADMAP Queue C);
 a full-width run goes through :class:`FaultTolerantTrainer` directly, as

@@ -3,8 +3,10 @@ and the port.
 
 Both packages keep one parameter layout: nested dicts, the ``layers``
 tuple of stacked tensors, and ``x @ W`` weights of shape ``(in, out)``;
-and one decode-cache layout: ``layers`` (a tuple of stacked ``{"k", "v"}``
-dicts), ``tail`` and an int32 ``length``.  So a tree read as numpy
+and one decode-cache layout: ``layers`` (a tuple of stacked entries, one
+per kind of the block unit: ``{"k", "v"}`` for attention, ``{"h",
+"conv"}`` for the RG-LRU, the tuples ``(C, n, m)`` and ``(c, n, m, h)``
+for the mLSTM and sLSTM), ``tail`` and an int32 ``length``.  So a tree read as numpy
 (``jax.tree.map(np.asarray, tree)``) becomes the port's tree leaf for
 leaf with :func:`params_from_numpy`, and :func:`state_to_numpy` gives it
 back, for parameters, train states and caches alike.

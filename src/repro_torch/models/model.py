@@ -4,7 +4,8 @@ the serving modes.
 The port of ``repro/models/model.py:33-80`` and ``:129-140`` for token
 inputs: next-token cross entropy in float32, a logsumexp minus the target
 logit, where the target logit is taken by the reference's masked
-reduction over the vocab axis (``_pick``), not by a gather.  The
+reduction over the vocab axis (``_pick``), not by a gather, plus
+``router_aux_coef`` times the MoE layers' load-balance loss.  The
 masked-prediction loss of the encoder-only models waits for them (ROADMAP
 Queue A item 10.6).  :func:`make_batch` draws tokens from an explicit
 ``torch.Generator``: the reference's ``jax.random`` draw cannot be

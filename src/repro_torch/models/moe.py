@@ -1,0 +1,158 @@
+"""Mixture-of-Experts layer: top-k router and grouped capacity dispatch.
+
+The port of ``repro/models/moe.py:27-172`` (``moe_init``,
+``router_aux_loss``, ``moe_apply``).  No Pallas kernel sits in this
+module: the expert products are batched matrix products (``torch.einsum``)
+as the reference leaves them to XLA.  The semantics are the reference's:
+
+* the router runs in float32 (``x.float() @ router``), softmax, top-k,
+  weights renormalised over the k picks;
+* the T tokens split into ``g = gcd(T, n_groups)`` groups; capacity is
+  counted per group, ``ceil(Tl * k / E * capacity_factor)``, or every
+  assignment fits (dropless) under ``capacity_factor=None``;
+* an assignment's position in its expert's bucket is the prefix count over
+  the group's (token, slot) order, and positions at or past the capacity
+  are dropped (their residual passes through);
+* the dead padded experts (``pad_to`` > ``n_experts``) are never routed to:
+  the router is ``n_experts`` wide;
+* the pick weights are cast to the input's dtype before the k-way combine;
+* shared experts run as one dense SwiGLU of width ``n_shared * expert_ff``.
+
+Ties in the top-k: ``jax.lax.top_k`` takes the lower expert index first;
+``torch.topk`` does not promise an order for equal values, so the port
+takes the first k of a stable descending sort, which does.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from .layers import dense_init, swiglu, swiglu_init
+
+__all__ = ["moe_apply", "moe_init", "router_aux_loss"]
+
+
+def moe_init(gen: torch.Generator, d: int, n_experts: int, expert_ff: int,
+             n_shared: int, dtype: torch.dtype, pad_to: int = 0, *,
+             lead: tuple[int, ...] = ()) -> dict:
+    """The layer's parameters, ``lead`` stacking layers.  ``pad_to`` >
+    ``n_experts`` appends dead experts (60 -> 64).  The expert weights are
+    drawn in float32 one ``(n_phys, d, f)`` slab at a time and cast, so
+    that a full-width stack (24 x 64 x 2048 x 1408) never exists in
+    float32."""
+    n_phys = max(n_experts, pad_to)
+    dev = gen.device
+
+    def experts(rows: int, cols: int) -> torch.Tensor:
+        out = torch.empty(lead + (n_phys, rows, cols), dtype=dtype,
+                          device=dev)
+        for slab in out.view(-1, n_phys, rows, cols):
+            slab.copy_(torch.randn((n_phys, rows, cols), generator=gen,
+                                   dtype=torch.float32, device=dev)
+                       * (1.0 / math.sqrt(rows)))
+        return out
+
+    p = {"router": dense_init(gen, d, n_experts, torch.float32, lead=lead),
+         "experts": {"w_gate": experts(d, expert_ff),
+                     "w_up": experts(d, expert_ff),
+                     "w_down": experts(expert_ff, d)}}
+    if n_shared:
+        p["shared"] = swiglu_init(gen, d, n_shared * expert_ff, dtype,
+                                  lead=lead)
+    return p
+
+
+def router_aux_loss(gates: torch.Tensor, top_idx: torch.Tensor,
+                    n_experts: int) -> torch.Tensor:
+    """Switch-style load-balance loss: E * sum_e f_e * P_e.
+
+    gates: (T, E) softmax probabilities; top_idx: (T, k) selected experts.
+    """
+    pe = gates.mean(dim=0)
+    # Counts by scatter-add of ones: exact in float32 at any order, and,
+    # unlike bincount, no read-back to the host on CUDA.
+    flat = top_idx.reshape(-1)
+    fe = torch.zeros((n_experts,), dtype=torch.float32,
+                     device=gates.device).scatter_add_(
+        0, flat, torch.ones(flat.shape, dtype=torch.float32,
+                            device=gates.device))
+    fe = fe / max(1.0, float(top_idx.numel()))
+    return n_experts * torch.sum(fe * pe)
+
+
+def _top_k(gates: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k largest along the last axis, equal values in index order (as
+    ``jax.lax.top_k``)."""
+    vals, idx = torch.sort(gates, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_apply(params: dict, x: torch.Tensor, *, top_k: int,
+              capacity_factor: float | None = 1.25,
+              n_groups: int = 32) -> tuple[torch.Tensor, torch.Tensor]:
+    """Apply the MoE layer. x (..., d) -> (same shape, aux_loss scalar).
+
+    ``capacity_factor=None`` is the dropless capacity (decode)."""
+    orig_shape = x.shape
+    d = orig_shape[-1]
+    xt = x.reshape(-1, d)                                     # (T, d)
+    t = xt.shape[0]
+    n_experts = params["router"].shape[-1]
+    n_phys = params["experts"]["w_gate"].shape[0]
+
+    g = math.gcd(t, max(1, n_groups))
+    tl = t // g
+    xg = xt.reshape(g, tl, d)
+
+    logits = xg.float() @ params["router"]                    # (G, Tl, E)
+    gates = torch.softmax(logits, dim=-1)
+    top_w, top_idx = _top_k(gates, top_k)                     # (G, Tl, k)
+    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+    aux = router_aux_loss(gates.reshape(t, n_experts),
+                          top_idx.reshape(t, top_k), n_experts)
+
+    ts_l = tl * top_k
+    flat_e = top_idx.reshape(g, ts_l)                         # (G, TSl)
+    flat_w = top_w.reshape(g, ts_l).to(x.dtype)
+    if capacity_factor is None:
+        capacity = ts_l
+    else:
+        capacity = max(1, int(math.ceil(ts_l / n_experts * capacity_factor)))
+
+    # Position of each assignment in its (group, expert) bucket: the count
+    # of the group's earlier assignments to the same expert (a comparison,
+    # not one_hot, which reads the indices back to the host on CUDA).
+    experts = torch.arange(n_phys, device=x.device)
+    onehot = (flat_e[..., None] == experts).long()            # (G, TSl, E)
+    pos = torch.gather(torch.cumsum(onehot, dim=1), 2,
+                       flat_e[..., None])[..., 0] - 1
+    keep = pos < capacity
+    safe_pos = torch.where(keep, pos, capacity)               # overflow slot
+
+    upd = xg[:, :, None, :].expand(g, tl, top_k, d).reshape(g, ts_l, d)
+    upd = torch.where(keep[..., None], upd, torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
+    # Scatter into (G, E, C+1, d); slot `capacity` takes the drops (zeros).
+    # Kept assignments have distinct slots, so each is written once.
+    rows = torch.arange(g, device=x.device)[:, None].expand(g, ts_l)
+    buf = torch.zeros((g, n_phys, capacity + 1, d), dtype=x.dtype,
+                      device=x.device)
+    buf = buf.index_put((rows, flat_e, safe_pos), upd, accumulate=True)
+
+    e = params["experts"]
+    gate = F.silu(torch.einsum("gecd,edf->gecf", buf, e["w_gate"]))
+    up = torch.einsum("gecd,edf->gecf", buf, e["w_up"])
+    out_buf = torch.einsum("gecf,efd->gecd", gate * up, e["w_down"])
+
+    contrib = out_buf[rows, flat_e, safe_pos]                 # (G, TSl, d)
+    contrib = torch.where(keep[..., None], contrib,
+                          torch.zeros((), dtype=contrib.dtype,
+                                      device=x.device)) * flat_w[..., None]
+    yt = contrib.reshape(g, tl, top_k, d).sum(dim=2).reshape(t, d)
+
+    if "shared" in params:
+        yt = yt + swiglu(params["shared"], xt)
+    return yt.reshape(orig_shape), aux

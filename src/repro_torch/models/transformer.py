@@ -1,11 +1,13 @@
-"""Dense decoder blocks: parameter init and the three execution modes.
+"""Decoder blocks: parameter init and the three execution modes.
 
-The port of the dense part of ``repro/models/transformer.py`` (``:50-371``,
-``:408-650``): global ("attn") and sliding-window ("local") attention
-blocks with a SwiGLU FFN, RMSNorm, RoPE, token embedding and an LM head
-(untied or tied), run as
+The port of ``repro/models/transformer.py`` for token inputs: global
+("attn") and sliding-window ("local") attention blocks, RG-LRU ("rec",
+:mod:`.rglru`) and xLSTM ("mlstm", "slstm", :mod:`.xlstm`) blocks, each
+attention or RG-LRU block with an FFN (SwiGLU, or the MoE of :mod:`.moe`),
+RMSNorm, RoPE, token embedding and an LM head (untied or tied), run as
 
-* :func:`forward_train`: the teacher-forced pass -> logits;
+* :func:`forward_train`: the teacher-forced pass -> logits and the
+  MoE layers' summed router aux loss;
 * :func:`prefill`: the full-sequence pass that also fills the decode cache;
 * :func:`decode_step`: one token against the cache.
 
@@ -16,11 +18,14 @@ block unit are stacked along a leading layer axis in the ``layers`` tuple
 and weights are ``x @ W`` matrices of shape ``(in, out)``.  The stacked
 layers run as a Python loop over :func:`torch.unbind` views (one stacked
 gradient per weight, no per-layer zero-fill).  The decode cache keeps the
-reference's tree too: ``layers`` is a tuple of ``{"k", "v"}`` dicts stacked
-along the layer axis, ``tail`` a tuple, ``length`` ``(B,)`` int32; an
-"attn" entry is a ``(B, cache_len, KV, hd)`` append buffer (valid prefix =
-length), a "local" entry a ``(B, window, KV, hd)`` ring buffer (slot of
-position t = t mod window).
+reference's tree too: ``layers`` is a tuple (one entry per kind of the
+unit) stacked along the layer axis, ``tail`` a tuple, ``length`` ``(B,)``
+int32.  An "attn" entry is ``{"k", "v"}``, each a ``(B, cache_len, KV,
+hd)`` append buffer (valid prefix = length); a "local" entry the same as
+a ``(B, window, KV, hd)`` ring buffer (slot of position t = t mod
+window); "rec" ``{"h": (B, w) f32, "conv": (B, cw - 1, w)}``; "mlstm" the
+tuple ``(C~ (B, H, hd, hd), n~ (B, H, hd), m (B, H))`` in float32 with hd
+= 2 d / H; "slstm" the tuple ``(c, n, m, h)``, each ``(B, d)`` float32.
 
 Attention follows ``cfg.attn_impl`` as in the reference, dispatched by
 :mod:`repro_torch.kernels.ops`: ``"ref"`` runs the plain
@@ -33,12 +38,18 @@ Unlike the reference, :func:`prefill` writes into a fresh cache and
 :func:`decode_step` writes the new token's k and v into the cache it is
 given, in place, and returns that cache: the reference's one-hot blend
 (``_scatter_time``) reads and writes every layer's whole cache three times
-a token.  A caller that reuses a cache clones it first.
+a token.  A caller that reuses a cache clones it first.  The recurrent
+entries are replaced, as in the reference: :func:`decode_step` returns
+new stacked state tensors and leaves the given ones as they were.
 
-Not ported yet, and raising ``NotImplementedError``: MoE FFNs (ROADMAP
-Queue A item 10.2), RG-LRU (10.3), xLSTM (10.4), M-RoPE (10.5) and
-encoder-only inputs (10.6).  ``cfg.remat`` is ignored: the port keeps
-every activation, which does not change the numbers.
+MoE layers drop at ``cfg.capacity_factor`` in :func:`forward_train` and
+:func:`prefill`, and are dropless in :func:`decode_step`, as in the
+reference.
+
+Not ported yet, and raising ``NotImplementedError``: M-RoPE (ROADMAP
+Queue A item 10.5) and encoder-only inputs (10.6).  ``cfg.remat`` is
+ignored: the port keeps every activation, which does not change the
+numbers.
 """
 
 from __future__ import annotations
@@ -52,11 +63,19 @@ from ..device import resolve_device
 from ..kernels import ops
 from .layers import (apply_rope, chunked_attention, dense_init, norm_init,
                      rms_norm, rope_angles, swiglu, swiglu_init)
+from .moe import moe_apply, moe_init
+from .rglru import (rglru_block_apply, rglru_block_init, rglru_decode_step,
+                    rglru_init_state)
+from .xlstm import (mlstm_block_apply, mlstm_block_init, mlstm_decode_step,
+                    mlstm_init_state, slstm_block_apply, slstm_block_init,
+                    slstm_decode_step, slstm_init_state)
 
 __all__ = ["decode_step", "forward_train", "init_cache", "init_params",
            "param_dtype", "prefill"]
 
-_DENSE = ("attn", "local")
+_ATTN = ("attn", "local")
+_KINDS = _ATTN + ("rec", "mlstm", "slstm")
+_XLSTM = ("mlstm", "slstm")     # blocks without an FFN
 
 
 def param_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -65,17 +84,8 @@ def param_dtype(cfg: ModelConfig) -> torch.dtype:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the parts of ``cfg`` the port does not run yet."""
-    if cfg.n_experts:
-        raise NotImplementedError(f"{cfg.name}: MoE FFNs are ROADMAP Queue "
-                                  f"A item 10.2")
     for kind in cfg.blocks:
-        if kind == "rec":
-            raise NotImplementedError(f"{cfg.name}: RG-LRU blocks are "
-                                      f"ROADMAP Queue A item 10.3")
-        if kind in ("mlstm", "slstm"):
-            raise NotImplementedError(f"{cfg.name}: xLSTM blocks are "
-                                      f"ROADMAP Queue A item 10.4")
-        if kind not in _DENSE:
+        if kind not in _KINDS:
             raise ValueError(f"unknown block kind {kind!r}")
     if cfg.mrope_sections is not None:
         raise NotImplementedError(f"{cfg.name}: M-RoPE is ROADMAP Queue A "
@@ -96,14 +106,29 @@ def _block_init(cfg: ModelConfig, kind: str, gen: torch.Generator,
     dt = param_dtype(cfg)
     dev = gen.device
     p: dict = {"norm_t": norm_init(d, dt, dev, lead=lead)}
-    if kind in _DENSE:
+    if kind in _ATTN:
         p["attn"] = {
             "w_q": dense_init(gen, d, cfg.n_heads * hd, dt, lead=lead),
             "w_k": dense_init(gen, d, cfg.n_kv_heads * hd, dt, lead=lead),
             "w_v": dense_init(gen, d, cfg.n_kv_heads * hd, dt, lead=lead),
             "w_o": dense_init(gen, cfg.n_heads * hd, d, dt, lead=lead),
         }
-    if cfg.d_ff:
+    elif kind == "rec":
+        p["rec"] = rglru_block_init(gen, d, cfg.lru_width, cfg.conv1d_width,
+                                    dt, lead=lead)
+    elif kind == "mlstm":
+        p["mlstm"] = mlstm_block_init(gen, d, cfg.n_heads, dt, lead=lead)
+    else:
+        p["slstm"] = slstm_block_init(gen, d, cfg.n_heads, dt, lead=lead)
+    if kind in _XLSTM:
+        return p
+    if cfg.n_experts:
+        p["norm_f"] = norm_init(d, dt, dev, lead=lead)
+        p["ffn"] = moe_init(gen, d, cfg.n_experts,
+                            cfg.expert_d_ff or cfg.d_ff,
+                            cfg.n_shared_experts, dt,
+                            pad_to=cfg.pad_experts_to, lead=lead)
+    elif cfg.d_ff:
         p["norm_f"] = norm_init(d, dt, dev, lead=lead)
         p["ffn"] = swiglu_init(gen, d, cfg.d_ff, dt, lead=lead)
     return p
@@ -178,27 +203,70 @@ def _qkv(cfg: ModelConfig, a: dict, h: torch.Tensor, cos: torch.Tensor,
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def _ffn(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    if "ffn" in p:
-        x = x + swiglu(p["ffn"], rms_norm(x, p["norm_f"], cfg.norm_eps))
-    return x
+def _ffn(cfg: ModelConfig, p: dict, x: torch.Tensor,
+         capacity_factor: float | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The block's FFN on the residual ``x``: (x out, MoE aux loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if "ffn" not in p:
+        return x, aux
+    h = rms_norm(x, p["norm_f"], cfg.norm_eps)
+    if cfg.n_experts:
+        out, aux = moe_apply(p["ffn"], h, top_k=cfg.top_k,
+                             capacity_factor=capacity_factor)
+    else:
+        out = swiglu(p["ffn"], h)
+    return x + out, aux
+
+
+def _recurrent(cfg: ModelConfig, kind: str, p: dict, h: torch.Tensor
+               ) -> tuple[torch.Tensor, object]:
+    """A recurrent block's full-sequence apply from a zero state: (output,
+    final state)."""
+    if kind == "rec":
+        return rglru_block_apply(p["rec"], h)
+    if kind == "mlstm":
+        return mlstm_block_apply(p["mlstm"], h, n_heads=cfg.n_heads,
+                                 chunk=cfg.mlstm_chunk)
+    return slstm_block_apply(p["slstm"], h, n_heads=cfg.n_heads)
 
 
 def _block_apply_full(cfg: ModelConfig, kind: str, p: dict,
                       x: torch.Tensor, cos: torch.Tensor,
-                      sin: torch.Tensor) -> torch.Tensor:
+                      sin: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Training-mode apply: (x out, MoE aux loss)."""
     h = rms_norm(x, p["norm_t"], cfg.norm_eps)
-    return _ffn(cfg, p, x + _attn_apply(cfg, kind, p["attn"], h, cos, sin))
+    if kind in _ATTN:
+        x = x + _attn_apply(cfg, kind, p["attn"], h, cos, sin)
+    else:
+        x = x + _recurrent(cfg, kind, p, h)[0]
+    return _ffn(cfg, p, x, cfg.capacity_factor)
+
+
+def _store(entry, new) -> None:
+    """Copy a layer's state ``new`` into its cache ``entry`` (views into
+    the stacked cache), leaf for leaf."""
+    if isinstance(entry, dict):
+        for key in entry:
+            _store(entry[key], new[key])
+    elif isinstance(entry, tuple):
+        for e, n in zip(entry, new):
+            _store(e, n)
+    else:
+        entry.copy_(new)
 
 
 def _block_prefill(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
                    cos: torch.Tensor, sin: torch.Tensor,
-                   entry: dict) -> torch.Tensor:
+                   entry) -> torch.Tensor:
     """Prefill-mode apply: attention through ``chunked_attention`` (the
-    reference's prefill takes no kernel), and the layer's k, v written
-    into its cache ``entry``."""
+    reference's prefill takes no kernel), and the layer's k, v or final
+    recurrent state written into its cache ``entry``."""
     b, s, _ = x.shape
     h = rms_norm(x, p["norm_t"], cfg.norm_eps)
+    if kind not in _ATTN:
+        out, state = _recurrent(cfg, kind, p, h)
+        _store(entry, state)
+        return _ffn(cfg, p, x + out, cfg.capacity_factor)[0]
     q, k, v = _qkv(cfg, p["attn"], h, cos, sin)
     kx, vx = _layout_kv(cfg, k, v)
     window = cfg.attn_window if kind == "local" else 0
@@ -215,16 +283,29 @@ def _block_prefill(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
             buf.copy_(torch.roll(t[:, -w:], s % w, dims=1))
         else:
             buf[:, :s] = t
-    return _ffn(cfg, p, x)
+    return _ffn(cfg, p, x, cfg.capacity_factor)[0]
 
 
 def _block_decode(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
-                  entry: dict, new_length: torch.Tensor, slot: tuple,
-                  cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """Decode-mode apply: x (B,1,d); the token's k, v go into ``entry``
-    at ``slot`` (in place), then attention over ``new_length`` entries."""
+                  entry, new_length: torch.Tensor, slot: tuple | None,
+                  cos: torch.Tensor, sin: torch.Tensor
+                  ) -> tuple[torch.Tensor, object]:
+    """Decode-mode apply: x (B,1,d) -> (x out, the layer's cache entry).
+    Attention: the token's k, v go into ``entry`` at ``slot`` (in place),
+    then attention over ``new_length`` entries.  Recurrent blocks: one
+    step from ``entry``, returning a new state.  MoE FFNs are dropless."""
     b = x.shape[0]
     h = rms_norm(x, p["norm_t"], cfg.norm_eps)
+    if kind == "mlstm":
+        out, entry = mlstm_decode_step(p["mlstm"], h, entry,
+                                       n_heads=cfg.n_heads)
+        return x + out, entry
+    if kind == "slstm":
+        out, entry = slstm_decode_step(p["slstm"], h, entry)
+        return x + out, entry
+    if kind == "rec":
+        out, entry = rglru_decode_step(p["rec"], h, entry)
+        return _ffn(cfg, p, x + out, None)[0], entry
     q, k, v = _qkv(cfg, p["attn"], h, cos, sin)
     kc, vc = entry["k"], entry["v"]
     _scatter_time(kc, k, slot)
@@ -233,7 +314,7 @@ def _block_decode(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
     out = ops.decode_attention(q, kc, vc, new_length, window=win,
                                impl=cfg.attn_impl)
     x = x + out.reshape(b, 1, -1) @ p["attn"]["w_o"]
-    return _ffn(cfg, p, x)
+    return _ffn(cfg, p, x, None)[0], entry
 
 
 def _slot(pos: torch.Tensor, size: int) -> tuple:
@@ -257,15 +338,27 @@ def _scatter_time(cache: torch.Tensor, new: torch.Tensor,
                                    cache[rows, idx])
 
 
-def _unbind_tree(tree: dict, n: int) -> list[dict]:
-    """A stacked param dict as ``n`` per-layer dicts of views."""
-    out: list[dict] = [{} for _ in range(n)]
-    for key, val in tree.items():
-        parts = (_unbind_tree(val, n) if isinstance(val, dict)
-                 else torch.unbind(val, 0))
-        for i in range(n):
-            out[i][key] = parts[i]
-    return out
+def _unbind_tree(tree, n: int) -> list:
+    """A stacked tree (dicts, tuples, tensors with a leading layer axis)
+    as ``n`` per-layer trees of views."""
+    if isinstance(tree, dict):
+        parts = {key: _unbind_tree(val, n) for key, val in tree.items()}
+        return [{key: parts[key][i] for key in tree} for i in range(n)]
+    if isinstance(tree, tuple):
+        parts = [_unbind_tree(val, n) for val in tree]
+        return [tuple(p[i] for p in parts) for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
+def _stack_tree(trees: list):
+    """Per-layer trees stacked along a new leading layer axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {key: _stack_tree([t[key] for t in trees]) for key in first}
+    if isinstance(first, tuple):
+        return tuple(_stack_tree([t[i] for t in trees])
+                     for i in range(len(first)))
+    return torch.stack(trees)
 
 
 def _embed(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
@@ -306,24 +399,36 @@ def forward_train(cfg: ModelConfig, params: dict, batch: dict
     x = _embed(cfg, params, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
-    for kind, p, _ in _layers(cfg, params):
-        x = _block_apply_full(cfg, kind, p, x, cos, sin)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for kind, p, _ in _layers(cfg, params):
+        x, layer_aux = _block_apply_full(cfg, kind, p, x, cos, sin)
+        aux = aux + layer_aux
     return _head(cfg, params, x), aux
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, cache_len: int,
                device: str | torch.device | None = None) -> dict:
-    """Zero decode cache (``device=None`` means CUDA): "attn" entries
-    (B, cache_len, KV, hd), "local" ring buffers (B, window, KV, hd), in
-    the parameters' dtype; ``length`` zeros."""
+    """Zero decode cache (``device=None`` means CUDA), as the reference's
+    ``init_cache``: "attn" entries (B, cache_len, KV, hd), "local" ring
+    buffers (B, window, KV, hd), in the parameters' dtype; the recurrent
+    states (the RG-LRU conv window in the parameters' dtype, the rest
+    float32, the stabilisers m at -1e30); ``length`` zeros."""
     check_supported(cfg)
     dev = resolve_device(device)
     dt = param_dtype(cfg)
     unit = cfg.block_unit
     n_rep = cfg.n_layers // len(unit)
 
-    def entry(kind: str, lead: tuple[int, ...]) -> dict:
+    def entry(kind: str, lead: tuple[int, ...]):
+        if kind == "rec":
+            return rglru_init_state(batch_size, cfg.lru_width,
+                                    cfg.conv1d_width, dt, dev, lead=lead)
+        if kind == "mlstm":
+            return mlstm_init_state(batch_size, cfg.n_heads,
+                                    2 * cfg.d_model // cfg.n_heads, dev,
+                                    lead=lead)
+        if kind == "slstm":
+            return slstm_init_state(batch_size, cfg.d_model, dev, lead=lead)
         size = cfg.attn_window if kind == "local" else cache_len
         shape = lead + (batch_size, size, cfg.n_kv_heads, cfg.head_dim)
         return {"k": torch.zeros(shape, dtype=dt, device=dev),
@@ -360,7 +465,8 @@ def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
                 cache: dict) -> tuple[torch.Tensor, dict]:
     """One decode step. token (B,) -> (logits (B,V), cache).
 
-    Writes the token's k and v into ``cache`` in place and returns it with
+    Writes the token's k and v into ``cache``'s attention entries in place
+    and returns a cache holding those entries, new recurrent states and
     ``length`` + 1 (a new tensor).
     """
     check_supported(cfg)
@@ -370,13 +476,23 @@ def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
     # Per-row positions: cos/sin (B, 1, hd/2).
     cos, sin = rope_angles(length[:, None], cfg.head_dim, cfg.rope_theta)
     slots: dict = {}
+    new_entries = []
     for kind, p, entry in _layers(cfg, params, cache):
-        if kind not in slots:
+        if kind in _ATTN and kind not in slots:
             size = entry["k"].shape[1]
             slots[kind] = _slot(length % size if kind == "local" else length,
                                 size)
-        x = _block_decode(cfg, kind, p, x, entry, new_length, slots[kind],
-                          cos, sin)
+        x, entry = _block_decode(cfg, kind, p, x, entry, new_length,
+                                 slots.get(kind), cos, sin)
+        new_entries.append(entry)
     logits = _head(cfg, params, x)[:, 0]
-    return logits, {"layers": cache["layers"], "tail": cache["tail"],
-                    "length": new_length}
+    # Restack the recurrent states; the attention stacks were written in
+    # place.
+    unit = cfg.block_unit
+    n_rep = cfg.n_layers // len(unit)
+    layers = tuple(
+        cache["layers"][u] if kind in _ATTN
+        else _stack_tree(new_entries[u:n_rep * len(unit):len(unit)])
+        for u, kind in enumerate(unit))
+    tail = tuple(new_entries[n_rep * len(unit):])
+    return logits, {"layers": layers, "tail": tail, "length": new_length}

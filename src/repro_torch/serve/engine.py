@@ -9,12 +9,14 @@ kernel when ``cfg.attn_impl != "ref"`` (:mod:`repro_torch.models`).
 
 As in the reference, the argmax of the prefill logits is the first token
 fed to decode and is not returned; each step returns the chosen token and
-the log-softmax of the unscaled logits at it.  ``jax.random.categorical``
+the log-softmax of the unscaled logits at it.  The same engine serves every
+decoder family the port runs (dense, MoE, the RG-LRU hybrid, xLSTM): the
+cache carries the attention entries and the recurrent states alike.  ``jax.random.categorical``
 cannot be replayed in torch, so a sampled token is the Gumbel-max draw
 ``argmax(logits / T - log(-log U))`` with U uniform from a
 ``torch.Generator`` on the device, seeded with ``seed``; greedy decoding
-(``temperature=0``, the parity target) draws nothing.  Each step updates
-the cache in place.
+(``temperature=0``, the parity target) draws nothing.  Each step writes
+the attention caches in place and replaces the recurrent states.
 """
 
 from __future__ import annotations

@@ -64,7 +64,8 @@ def test_port_files_found():
             "spec.py", "experiment.py", "extras.py", "llama3_405b.py",
             "internlm2_20b.py", "hubert_xlarge.py", "qwen2_moe_a27b.py",
             "qwen2_vl_72b.py", "qwen3_moe_235b_a22b.py",
-            "recurrentgemma_2b.py", "xlstm_125m.py"} <= names
+            "recurrentgemma_2b.py", "xlstm_125m.py", "moe.py", "rglru.py",
+            "xlstm.py"} <= names
     port = ROOT / "src" / "repro_torch"
     assert {"fleet/__init__.py", "fleet/sim.py", "ft/estimator.py",
             "obs/trace.py", "core/multilevel.py"} \
@@ -150,6 +151,13 @@ from repro_torch.serve import ServingEngine
 for impl in ("ref", "pallas"):
     scfg = dataclasses.replace(cfg, attn_impl=impl)
     eng = ServingEngine(scfg, init_params(scfg, seed=0, device="cpu"),
+                        cache_len=12)
+    out = eng.generate({"tokens": torch.zeros((2, 8), dtype=torch.int32)}, 4)
+    assert out.tokens.shape == (2, 4) and bool((out.logprobs <= 0).all())
+from repro_torch.configs import get
+for arch in ("qwen2-moe-a2.7b", "recurrentgemma-2b", "xlstm-125m"):
+    fcfg = dataclasses.replace(get(arch).reduced(), attn_impl="pallas")
+    eng = ServingEngine(fcfg, init_params(fcfg, seed=0, device="cpu"),
                         cache_len=12)
     out = eng.generate({"tokens": torch.zeros((2, 8), dtype=torch.int32)}, 4)
     assert out.tokens.shape == (2, 4) and bool((out.logprobs <= 0).all())
