@@ -18,7 +18,9 @@ result):
                the attention
                PTX divides with div.rn.f32 (no fast-math division), and
                flash_attention's multiplies on the tensor cores
-               (wgmma.mma_async, its bf16 route).
+               (wgmma.mma_async, its bf16 route), also in its head-dim-80
+               bf16 instantiation (hubert-xlarge), whose registers and
+               spills are printed beside the fp32 one's.
 3. kernel    - event_step against its plain torch version on the same
                CUDA tensors, ``==`` on the bits, at 300, 4,800, the main
                path's 5,200 and 65,536 lanes with 1 and 4 passes.  Then
@@ -172,7 +174,10 @@ result):
                2,048, uneven tiles, a window, q_offset and no mask; decode
                over the wrapped, ragged 2,048-slot ring, a short ring and
                an append cache; the first two timed in bf16 beside plain,
-               SDPA and the bound.
+               SDPA and the bound.  Head dim 80 (hubert-xlarge's, flash
+               only): bidirectional at hubert's own (1, 2,048, 16 heads)
+               and with uneven tiles, causal with a window, and with
+               q_offset.
 11. serving   - the slice's main path: ServingEngine on tinyllama-1.1b at
                full width (bf16, attn_impl="pallas", cache_len 2176),
                batch 8, prompt 2,048, 128 new tokens, greedy; prefill s,
@@ -203,11 +208,16 @@ result):
                and forward_train through the flash kernel (22 launches),
                both within 1e-4 of the ref route's largest logit.
 13. serving cuda vs cpu - reduced llama3.2-1b, qwen2-moe-a2.7b,
-               recurrentgemma-2b and xlstm-125m in float32 (batch 3, prompt
-               24, 8 new tokens, cache_len 48, as ``tests/test_serve.py``)
-               with attn_impl="pallas" on CUDA (the kernel) and on the CPU
-               (its plain version): greedy tokens ``==``, logprobs within
-               1e-4, one decode launch per attention layer and step.
+               recurrentgemma-2b, xlstm-125m and qwen2-vl-72b (its prompts
+               a quarter vision patches, M-RoPE positions) in float32
+               (batch 3, prompt 24, 8 new tokens, cache_len 48, as
+               ``tests/test_serve.py``) with attn_impl="pallas" on CUDA
+               (the kernel) and on the CPU (its plain version): greedy
+               tokens ``==``, logprobs within 1e-4, one decode launch per
+               attention layer and step.  Reduced hubert-xlarge (head dim
+               64, and 80 as at full size): forward_train logits and
+               loss_fn's loss through the flash kernel on CUDA against its
+               plain version on the CPU, within 1e-4.
 14. families  - qwen2-moe-a2.7b (24 layers, d 2048, 16/16 heads of 128, 60
                routed experts stored as 64, top 4, 4 shared, expert d_ff
                1408, vocab 151,936), recurrentgemma-2b (26 layers: rec,
@@ -241,14 +251,37 @@ result):
                largest logit and forward_train over two prompts within
                1e-4, MoE expert choices replayed and each held to a near
                tie (within 2e-2 of the ref route's own k-th gate).
+15. modalities - (a) qwen2-vl-72b at its published widths (d 8192, 64
+               query heads over 8 kv heads of 128, d_ff 29,568, vocab
+               152,064, M-RoPE sections (16, 24, 24), theta 1e6) with its
+               depth cut to fit one card: 16 of 80 layers in bf16 (16.53 B
+               parameters, 33.1 GB), served as phase 14's cells (batch 8,
+               prompt 2,048 of which the first 512 are vision patches from
+               ``make_batch``'s stub on its (t, h, w) grid, 128 new tokens,
+               greedy, cache_len 2,176; decode launches 16 x 128, flash 16
+               in forward_train; bf16 logit comparisons printed), then 8
+               layers in float32 (9.51 B, 38.1 GB) held at 1e-4 (the
+               teacher-forced ref route with the same positions_thw, and
+               forward_train over two prompts).  (b) hubert-xlarge at full
+               size (48 layers, d 1280, 16 heads of 80, bidirectional, 504
+               units): batch 8 x 2,048 frames with a 0.35 mask, bf16 then
+               float32: forward_train and loss_fn through the flash kernel
+               (48 launches each, causal=False, head dim 80) and through
+               the ref route (held at 1e-4 of the largest logit and of the
+               loss in float32, printed in bf16); the kernel held to plain
+               on layer 0's real inputs (one bf16 ulp; 2e-6 cast to
+               float32) and timed beside
+               scaled_dot_product_attention(is_causal=False) and its
+               operations bound; forward s on each route, frames/s, peak
+               memory.
 
 The last two lines are the ``kernels`` JSON line (all five TPU kernels;
 the event_step entry reports lane_loop_kernel, which carries the advance
 on the main path, with its adaptive instantiation's check, time, launches
 and bound from phase 3a, the predictor study's launches and the
 experiment phase's launches and check; the attention entries add the
-families phase's launches per cell and the hd-256 and per-family
-timings) and
+families' and modalities' launches per cell and the hd-256, per-family,
+qwen2-vl-72b and (flash) hubert-xlarge timings) and
 ``{"ok": true, "device": {...}}``.  Run from a checkout: it imports the
 port from ``src/`` beside it and builds into ``build/repro_torch/``.  The
 checkpoint phases write about 27 GB into a temporary directory (under
@@ -364,6 +397,10 @@ def _entry_label(mangled: str) -> str:
         wide, adaptive = (("true" if v == "1" else "false")
                           for v in m.groups())
         return f"lane_loop_kernel<wide={wide}, adaptive={adaptive}>"
+    m = re.search(r"([a-z][a-z0-9_]*_kernel)I((?:Li\d+E)+)E", mangled)
+    if m:                  # integer template arguments, e.g. head dims
+        args = re.findall(r"Li(\d+)E", m.group(2))
+        return f"{m.group(1)}<{', '.join(args)}>"
     m = re.search(r"[a-z][a-z_]*_kernel", mangled)
     return m.group(0) if m else mangled
 
@@ -413,6 +450,18 @@ def phase_build() -> None:
                     raise RuntimeError(f"{label}: PTX lacks mul.rn.f64 or "
                                        f"holds fma.rn.f64")
                 log(f"[build] {label}: PTX has mul.rn.f64, no fma.rn.f64")
+        if name == "flash_attention":
+            # Head dim 80 (hubert-xlarge): both routes instantiated, the
+            # bf16 one on the tensor cores.
+            hd80 = {_entry_label(k): v for k, v in _ptx_entries(ptx).items()
+                    if re.search(r"kernelILi80E", k)}
+            bf16 = [b for label, b in hd80.items() if "wgmma" in label]
+            if len(hd80) != 2 or len(bf16) != 1 \
+                    or "wgmma.mma_async" not in bf16[0]:
+                raise RuntimeError(f"flash_attention: head-dim-80 entries "
+                                   f"{sorted(hd80)} lack a wgmma route")
+            log(f"[build] flash_attention: head dim 80 instantiated as "
+                f"{sorted(hd80)}; the bf16 one's PTX has wgmma.mma_async")
 
 
 def _max_abs_err(a, b) -> float:
@@ -3021,7 +3070,12 @@ FLASH_CASES = (
     # tiles, a window, q_offset and no mask.
     (1, 2048, 2048, 10, 1, 256, True, 2048, 0),
     (2, 130, 130, 4, 2, 256, True, 64, 0), (1, 64, 200, 4, 2, 256, True, 0, 136),
-    (2, 128, 128, 4, 4, 256, False, 0, 0))
+    (2, 128, 128, 4, 4, 256, False, 0, 0),
+    # head dim 80 (flash only): hubert-xlarge's bidirectional attention at
+    # its own heads and frames, uneven tiles, a window and q_offset.
+    (2, 128, 128, 4, 4, 80, False, 0, 0), (1, 130, 200, 4, 2, 80, False, 0, 0),
+    (1, 2048, 2048, 16, 16, 80, False, 0, 0),
+    (2, 130, 130, 4, 2, 80, True, 64, 0), (1, 64, 200, 4, 2, 80, True, 0, 136))
 DECODE_CASES = (
     # (b, s, h, kv, hd, window, lengths)
     (2, 256, 8, 2, 64, 0, (200, 200)), (2, 256, 8, 8, 64, 0, (17, 17)),
@@ -3071,8 +3125,8 @@ def _randn(shape, dtype, seed: int):
 def phase_attention_kernels(errs: dict) -> dict:
     """Both attention kernels against their plain versions on the
     reference's cases and one at the main path's shapes, float32 and
-    bfloat16; then the head-dim-256 cases at recurrentgemma-2b's shapes
-    timed (:func:`_time_hd256`)."""
+    bfloat16 (head dims 32-256, and 80 for flash); then the head-dim-256
+    cases at recurrentgemma-2b's shapes timed (:func:`_time_hd256`)."""
     import torch
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
@@ -3136,7 +3190,11 @@ def _time_hd256() -> dict:
 
 
 def _serving_setup(dtype: str, arch: str = ARCH, tag: str = "[serve]",
-                   prompt: int = PROMPT, n_new: int = NEW_TOKENS):
+                   prompt: int = PROMPT, n_new: int = NEW_TOKENS,
+                   n_layers: int | None = None):
+    """The config at its published widths (``n_layers`` cuts the depth),
+    random weights from seed 0, ``make_batch``'s prompts and the engine,
+    on the card."""
     import torch
     from repro_torch.configs import get
     from repro_torch.configs.base import InputShape
@@ -3144,6 +3202,8 @@ def _serving_setup(dtype: str, arch: str = ARCH, tag: str = "[serve]",
     from repro_torch.serve import ServingEngine
     from repro_torch.tree import flatten
     cfg = dataclasses.replace(get(arch), attn_impl="pallas", dtype=dtype)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0)
     gen = torch.Generator(device="cuda")
@@ -3153,7 +3213,9 @@ def _serving_setup(dtype: str, arch: str = ARCH, tag: str = "[serve]",
     engine = ServingEngine(cfg, params, cache_len=SERVE_CACHE)
     torch.cuda.synchronize()
     leaves = flatten(params)
-    log(f"{tag} {cfg.name}: {cfg.n_layers} layers {cfg.block_unit}, d_model "
+    log(f"{tag} {cfg.name}: {cfg.n_layers} layers"
+        f"{'' if n_layers is None else f' (cut from {get(arch).n_layers})'}"
+        f" {cfg.block_unit}, d_model "
         f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, head_dim "
         f"{cfg.head_dim}, d_ff {cfg.d_ff}, experts {cfg.n_experts} (stored "
         f"{max(cfg.n_experts, cfg.pad_experts_to)}) top {cfg.top_k} + "
@@ -3313,9 +3375,15 @@ def _time_attention(name: str, kernel, plain, library, bound: dict,
             "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
 
 
-def _device_ms(fn, calls: int, runs: int = 3) -> float:
+def _device_ms(fn, calls: int, runs: int = 3,
+               one_event: bool = False) -> float:
     """Device time per call (profiler): the device time of everything
-    ``runs`` runs of ``fn`` launch, over their ``runs * calls`` calls.  A
+    ``runs`` runs of ``fn`` launch, over their ``runs * calls`` calls, or,
+    with ``one_event`` (each call launches one kernel and nothing else),
+    over the kernel events the profile recorded: a profile that loses
+    some (qwen2-vl-72b's decode calls read below the kernel's bytes bound
+    that way, ``PERF.md`` §7) still gives the time of a call, and a
+    recorded count short of the calls is printed.  A
     profile that recorded no device event (the tracer lost the window) is
     taken again with three times the runs, up to three times, then
     raises."""
@@ -3329,9 +3397,14 @@ def _device_ms(fn, calls: int, runs: int = 3) -> float:
             for _ in range(runs):
                 fn()
             torch.cuda.synchronize()
-        busy_us = sum(r[0] for r in _device_rows(prof))
+        rows = _device_rows(prof)
+        busy_us = sum(r[0] for r in rows)
         if busy_us > 0:
-            return busy_us / 1e3 / (runs * calls)
+            events = sum(r[2] for r in rows) if one_event else runs * calls
+            if events != runs * calls:
+                log(f"[timing] the profile recorded {events} of the "
+                    f"{runs * calls} kernel launches")
+            return busy_us / 1e3 / events
     raise RuntimeError("the profiler recorded no device time in three "
                        "tries")
 
@@ -3383,7 +3456,7 @@ def _time_decode(layers: list, what: str = "the last decode step") -> dict:
         {"bound_ms": bound_ms, "bound_by": "bytes",
          "note": f"{nbytes} bytes at {HBM_BYTES_PER_S:.3g} B/s"}, 20, 3,
         per_call=per)
-    dev = {key: _device_ms(fn, per) for key, fn in
+    dev = {key: _device_ms(fn, per, one_event=key == "ms") for key, fn in
            (("ms", kernel), ("plain_ms", plain), ("library_ms", library))}
     log(f"[timing] decode_attention, device time per call (profiler): "
         f"kernel {dev['ms']:.5f} ms, plain {dev['plain_ms']:.5f} ms, "
@@ -3394,11 +3467,12 @@ def _time_decode(layers: list, what: str = "the last decode step") -> dict:
 
 
 def _time_flash(q, k, v, window: int = 0,
-                what: str = "in forward_train (layer 0") -> dict:
+                what: str = "in forward_train (layer 0",
+                causal: bool = True) -> dict:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    ops = fa.flops(tuple(q.shape), k.shape[1], causal=True, window=window)
+    ops = fa.flops(tuple(q.shape), k.shape[1], causal=causal, window=window)
     ops_ms = ops / BF16_FLOP_PER_S * 1e3
     # The bf16 kernel's own tensor work: p @ v three times (p in three bf16
     # parts), so 8 * hd flops per valid pair instead of 4 * hd.
@@ -3424,13 +3498,15 @@ def _time_flash(q, k, v, window: int = 0,
         mask = (qp >= pos[None, :]) & (qp - pos[None, :] < window)
         sdpa = dict(attn_mask=mask)
     else:                         # a window of at least Skv cuts nothing
-        sdpa = dict(is_causal=True)
+        sdpa = dict(is_causal=causal)
     launches = fa.flash_attention.launches
     out = _time_attention(
         f"flash_attention {what}: q {tuple(q.shape)}, k, v "
-        f"{tuple(k.shape)}, {q.dtype}, causal, window {window})",
-        lambda: fa.flash_attention(q, k, v, window=window),
-        lambda: fa.flash_attention_ref(q, k, v, window=window),
+        f"{tuple(k.shape)}, {q.dtype}, "
+        f"{'causal' if causal else 'bidirectional'}, window {window})",
+        lambda: fa.flash_attention(q, k, v, causal=causal, window=window),
+        lambda: fa.flash_attention_ref(q, k, v, causal=causal,
+                                       window=window),
         lambda: F.scaled_dot_product_attention(qs, ks, vs, **sdpa),
         bound, 5, 2)
     fa.flash_attention.launches = launches        # timing does not count
@@ -3654,7 +3730,8 @@ def _forward_vs_ref(cfg, params, batch, hold: bool = True) -> tuple:
     the families' vocabularies).  For MoE the ref route replays the kernel
     route's expert choices (:class:`_Replay`), each within ROUTE_MARGIN of
     its own.  Unless ``hold``, the share is printed only.  Returns
-    (launches, (q, k, v, window) or None)."""
+    (launches, (q, k, v, window) or None, (kernel route s, ref route
+    s))."""
     import contextlib
     import torch
     from repro_torch.kernels import flash_attention as fa
@@ -3712,7 +3789,7 @@ def _forward_vs_ref(cfg, params, batch, hold: bool = True) -> tuple:
                              f"logits off the ref route's")
     _check_replay(cfg, replay, limit)
     del logits_k, logits_r
-    return launches, (held[0] if held else None)
+    return launches, (held[0] if held else None), (fwd_s, fwd_ref_s)
 
 
 def _serve_forward(cfg, params, batch, errs: dict,
@@ -3724,25 +3801,26 @@ def _serve_forward(cfg, params, batch, errs: dict,
     import torch
     from repro_torch.kernels import flash_attention as fa
 
-    launches, inputs = _forward_vs_ref(cfg, params, batch, hold)
+    launches, inputs, seconds = _forward_vs_ref(cfg, params, batch, hold)
     if inputs is None:
-        return {"launches": launches, "timing": None}
+        return {"launches": launches, "timing": None, "seconds": seconds}
     q, k, v, window = inputs
     # attn_layout="grouped": the same layer on its kv heads (g = H / KV),
     # which repeat_kv had expanded to H; the kernel gives the same bits.
     g = cfg.n_heads // cfg.n_kv_heads
     kg, vg = k[:, :, ::g].contiguous(), v[:, :, ::g].contiguous()
+    kw = dict(causal=cfg.causal, window=window)
     worst = {}
     for dtype in ("bfloat16", "float32"):
         x = [t.to(getattr(torch, dtype)) for t in (q, k, v, kg, vg)]
-        out = fa.flash_attention(*x[:3], window=window)
-        out_g = fa.flash_attention(x[0], x[3], x[4], window=window)
+        out = fa.flash_attention(*x[:3], **kw)
+        out_g = fa.flash_attention(x[0], x[3], x[4], **kw)
         worst[dtype] = max(
-            _check_close(out, fa.flash_attention_ref(*x[:3], window=window),
+            _check_close(out, fa.flash_attention_ref(*x[:3], **kw),
                          ATTN_TOL[dtype],
                          f"flash_attention at full width, {dtype}"),
             _check_close(out_g, fa.flash_attention_ref(x[0], x[3], x[4],
-                                                       window=window),
+                                                       **kw),
                          ATTN_TOL[dtype],
                          f"flash_attention at full width, grouped, {dtype}"))
         if not torch.equal(out_g, out):
@@ -3756,10 +3834,10 @@ def _serve_forward(cfg, params, batch, errs: dict,
         f"(g = {g}), and the two kernel outputs ==; largest differences "
         f"{worst}")
     fa.flash_attention.launches = launches      # checks do not count
-    return {"launches": launches,
+    return {"launches": launches, "seconds": seconds,
             "timing": _time_flash(q, k, v, window,
                                   f"in {cfg.name}'s forward_train (the first "
-                                  f"attention layer")}
+                                  f"attention layer", cfg.causal)}
 
 
 def phase_serving_f32(errs: dict) -> None:
@@ -3784,14 +3862,33 @@ def phase_serving_f32(errs: dict) -> None:
 
 
 SERVE_CUDA_CPU = ("llama3.2-1b", "qwen2-moe-a2.7b", "recurrentgemma-2b",
-                  "xlstm-125m")
+                  "xlstm-125m", "qwen2-vl-72b")
+
+
+def _reduced_prompts(cfg) -> dict:
+    """Phase 13's prompts (3 x 24) on the CPU: numpy tokens, and for the
+    VLM ``make_batch``'s patch embeddings (a CPU generator), vision mask
+    and (t, h, w) positions."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.models.model import make_batch
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (3, 24)).astype(np.int32))}
+    if cfg.mrope_sections is not None:
+        gen = torch.Generator()
+        gen.manual_seed(1)
+        stub = make_batch(cfg, InputShape("serve", 24, 3, "prefill"), gen)
+        batch.update({k: stub[k] for k in ("vision_embeds", "vision_mask",
+                                           "positions_thw")})
+    return batch
 
 
 def phase_serving_cuda_cpu() -> None:
-    """Reduced configs in float32 (llama3.2-1b, then the three families),
-    served on CUDA (the decode kernel) and on the CPU (its plain version)
-    from one set of weights."""
-    import numpy as np
+    """Reduced configs in float32 (llama3.2-1b, the three families and the
+    VLM), served on CUDA (the decode kernel) and on the CPU (its plain
+    version) from one set of weights; then the reduced encoder's forward
+    and loss (:func:`_encoder_cuda_cpu`)."""
     import torch
     from repro_torch.configs import get
     from repro_torch.kernels import decode_attention as da
@@ -3803,14 +3900,13 @@ def phase_serving_cuda_cpu() -> None:
         cfg = dataclasses.replace(get(arch).reduced(), dtype="float32",
                                   attn_impl="pallas")
         params = init_params(cfg, seed=0)
-        toks = torch.from_numpy(np.random.default_rng(1).integers(
-            0, cfg.vocab_size, (3, 24)).astype(np.int32))
+        prompts = _reduced_prompts(cfg)
         out = {}
         for device, p in (("cuda", params),
                           ("cpu", tree_map(lambda t: t.cpu(), params))):
             launches = da.decode_attention.launches
             out[device] = ServingEngine(cfg, p, cache_len=48).generate(
-                {"tokens": toks.to(device)}, 8)
+                {k: t.to(device) for k, t in prompts.items()}, 8)
             out[device + "_launches"] = da.decode_attention.launches \
                 - launches
         gpu, cpu = out["cuda"], out["cpu"]
@@ -3827,6 +3923,53 @@ def phase_serving_cuda_cpu() -> None:
                 or out["cpu_launches"]:
             raise AssertionError(f"reduced serving of {cfg.name}: the CUDA "
                                  f"run did not go through the decode kernel")
+    for head_dim in (None, 80):
+        _encoder_cuda_cpu(head_dim)
+
+
+def _encoder_cuda_cpu(head_dim: int | None) -> None:
+    """Reduced hubert-xlarge in float32 (at ``head_dim`` 80 as at full
+    size, else the reduced 64): forward_train logits and loss_fn's loss
+    with attn_impl="pallas" on CUDA (the flash kernel, one launch per
+    layer) against the same on the CPU (its plain version), within 1e-4
+    of the largest logit and of the loss."""
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.configs.base import InputShape
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.model import (forward_train, init_params,
+                                          loss_fn, make_batch)
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(get("hubert-xlarge").reduced(),
+                              dtype="float32", attn_impl="pallas")
+    if head_dim is not None:
+        cfg = dataclasses.replace(cfg, head_dim=head_dim)
+    gen = torch.Generator()
+    gen.manual_seed(1)
+    batch = make_batch(cfg, InputShape("t", 24, 3, "train"), gen)
+    params = init_params(cfg, seed=0)
+    out = {}
+    with torch.no_grad():
+        for device, p in (("cuda", params),
+                          ("cpu", tree_map(lambda t: t.cpu(), params))):
+            b = {k: t.to(device) for k, t in batch.items()}
+            launches = fa.flash_attention.launches
+            logits, _ = forward_train(cfg, p, b)
+            loss, _ = loss_fn(cfg, p, b)
+            out[device] = (logits.cpu(), float(loss),
+                           fa.flash_attention.launches - launches)
+    (lg, loss_g, n_g), (lc, loss_c, n_c) = out["cuda"], out["cpu"]
+    diff, scale = float((lg - lc).abs().max()), float(lc.abs().max())
+    log(f"[serve-cuda-cpu] {cfg.name} float32 (head_dim {cfg.head_dim}, "
+        f"bidirectional), 3 x 24 frames: forward_train logits CUDA vs CPU "
+        f"differ by {diff:.3e} ({diff / scale:.3e} of the largest), loss "
+        f"{loss_g} vs {loss_c}; flash_attention launches cuda {n_g}, cpu "
+        f"{n_c}")
+    if diff > 1e-4 * scale or abs(loss_g - loss_c) > 1e-4 * abs(loss_c):
+        raise AssertionError(f"reduced {cfg.name}: CUDA and CPU disagree")
+    if n_g != 2 * _attn_layers(cfg) or n_c:
+        raise AssertionError(f"reduced {cfg.name}: the CUDA run did not go "
+                             f"through the flash kernel")
 
 
 # -- the families phase: MoE, the RG-LRU hybrid and xLSTM at full width --------
@@ -3906,20 +4049,23 @@ def _prefill_split(cfg, engine, batch) -> dict:
     return {k: v for k, v in spent.items() if v}
 
 
-def _family_cell(arch: str, errs: dict) -> dict:
-    """One family at its published widths, served as the tinyllama cell
-    is (bf16, attn_impl="pallas", batch 8, prompt 2,048, 128 new tokens,
-    greedy, cache_len 2,176): timed and counted generate, a profiled
-    window, a checked generate with the ref route teacher-forced over it,
-    forward_train through the flash kernel against the ref route."""
+def _family_cell(arch: str, errs: dict, n_layers: int | None = None
+                 ) -> dict:
+    """One family at its published widths (``n_layers`` cuts the depth),
+    served as the tinyllama cell is (bf16, attn_impl="pallas", batch 8,
+    prompt 2,048, 128 new tokens, greedy, cache_len 2,176): timed and
+    counted generate, a profiled window, a checked generate with the ref
+    route teacher-forced over it, forward_train through the flash kernel
+    against the ref route."""
     import torch
+    import repro_torch.serve.engine as engine_mod
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
 
     tag = f"[{arch}]"
     prompt, n_new = FAMILY_SHAPES.get(arch, (PROMPT, NEW_TOKENS))
     cfg, params, batch, engine = _serving_setup("bfloat16", arch, tag,
-                                                prompt, n_new)
+                                                prompt, n_new, n_layers)
     n_attn = _attn_layers(cfg)
     engine.generate(batch, 2)                      # warm up
     torch.cuda.synchronize()
@@ -3933,17 +4079,33 @@ def _family_cell(arch: str, errs: dict) -> dict:
         + ", ".join(f"{k} {v:.4f} s" for k, v in split.items()
                     if k != "prefill"))
 
+    # The decode steps are timed from the end of the generate's own
+    # prefill (synchronised there): the generate's time less a separately
+    # timed prefill went negative where prefill varies by more than the
+    # decode steps take (xlstm-125m's sLSTM loop).
+    prefill_end, model_prefill = [], engine_mod.prefill
+
+    def timed_prefill(*args, **kw):
+        out = model_prefill(*args, **kw)
+        torch.cuda.synchronize()
+        prefill_end.append(time.perf_counter())
+        return out
+
+    engine_mod.prefill = timed_prefill
     torch.cuda.reset_peak_memory_stats()
     da.decode_attention.launches = 0
     fa.flash_attention.launches = 0
     t0 = time.perf_counter()
-    res = engine.generate(batch, n_new)
-    torch.cuda.synchronize()
+    try:
+        res = engine.generate(batch, n_new)
+        torch.cuda.synchronize()
+    finally:
+        engine_mod.prefill = model_prefill
     gen_s = time.perf_counter() - t0
     launches = da.decode_attention.launches
     flash_in_generate = fa.flash_attention.launches
     peak = torch.cuda.max_memory_allocated()
-    step_ms = (gen_s - prefill_s) / n_new * 1e3
+    step_ms = (t0 + gen_s - prefill_end[0]) / n_new * 1e3
     step_bytes, expert_bytes = _step_bytes(cfg, params, prompt + n_new)
     bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
     log(f"{tag} prefill {prefill_s:.4f} s "
@@ -3997,7 +4159,8 @@ def _family_cell(arch: str, errs: dict) -> dict:
             "busy": busy}
 
 
-def _family_cell_f32(arch: str, errs: dict) -> None:
+def _family_cell_f32(arch: str, errs: dict,
+                     n_layers: int | None = None) -> None:
     """The cell's comparisons in float32, where rounding leaves room for a
     limit that separates a faulty kernel (as phase 12 for tinyllama): the
     checked generate (decode kernel within 2e-6 of plain at the first and
@@ -4011,7 +4174,7 @@ def _family_cell_f32(arch: str, errs: dict) -> None:
     tag = f"[{arch}]"
     prompt, n_new = FAMILY_SHAPES.get(arch, (PROMPT, NEW_TOKENS))
     cfg, params, batch, engine = _serving_setup("float32", arch, tag,
-                                                prompt, n_new)
+                                                prompt, n_new, n_layers)
     routes = _Routes() if cfg.n_experts else None
     with routes or contextlib.nullcontext():
         res, step_logits, held = _generate_checked(cfg, engine, batch, errs,
@@ -4020,7 +4183,7 @@ def _family_cell_f32(arch: str, errs: dict) -> None:
         _check_generated(cfg, res, n_new)
         _teacher_forced(cfg, params, batch, res.tokens, step_logits, routes)
     del step_logits, engine
-    _forward_vs_ref(cfg, params, {"tokens": batch["tokens"][:2]})
+    _forward_vs_ref(cfg, params, {k: t[:2] for k, t in batch.items()})
     del params, batch, res
     _free_cuda()
 
@@ -4041,6 +4204,137 @@ def phase_families(errs: dict) -> dict:
             f"{c['decode_attention']}, flash_attention "
             f"{c['flash_attention']}; cell {t1 - t0:.1f} s in bf16, "
             f"{time.perf_counter() - t1:.1f} s in float32")
+    return out
+
+
+# -- the modalities phase: the M-RoPE VLM and the encoder-only audio model ----
+
+VLM_ARCH, AUDIO_ARCH = "qwen2-vl-72b", "hubert-xlarge"
+# qwen2-vl-72b's 80 layers (72.7 B parameters, about 145 GB in bf16) do not
+# fit one 80 GB card: its depth is cut, its widths kept (16 layers: 16.53 B
+# parameters, 33.1 GB in bf16; 8 layers: 9.51 B, 38.1 GB in float32).
+VLM_LAYERS = {"bfloat16": 16, "float32": 8}
+
+
+def _encoder_cell(dtype: str, errs: dict) -> dict:
+    """hubert-xlarge at full size (48 layers, 16 heads of 80,
+    bidirectional) on ``make_batch``'s 8 x 2,048 frames: forward_train
+    through the flash kernel against the ref route (:func:`_serve_forward`
+    in bf16, with the kernel held to plain on layer 0's inputs and timed
+    there; :func:`_forward_vs_ref` in float32, held at 1e-4, and the kernel
+    held to plain at 2e-6 on layer 0's float32 inputs), then loss_fn's
+    masked-prediction loss on both routes (held at 1e-4 of it in
+    float32)."""
+    import math
+
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.configs.base import InputShape
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.model import init_params, loss_fn, make_batch
+    from repro_torch.tree import flatten
+    tag = f"[{AUDIO_ARCH}]"
+    cfg = dataclasses.replace(get(AUDIO_ARCH), attn_impl="pallas",
+                              dtype=dtype)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    batch = make_batch(cfg, InputShape("audio", PROMPT, SERVE_BATCH,
+                                       "train"), gen)
+    torch.cuda.synchronize()
+    leaves = flatten(params)
+    log(f"{tag} {cfg.name}: {cfg.n_layers} layers {cfg.block_unit}, "
+        f"causal {cfg.causal}, embed_inputs {cfg.embed_inputs}, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, head_dim "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, {cfg.vocab_size} units, "
+        f"{cfg.dtype}; param_count {cfg.param_count()}, stored "
+        f"{sum(t.numel() for t in leaves)} "
+        f"({sum(t.numel() * t.element_size() for t in leaves) / 1e9:.3f} "
+        f"GB); {SERVE_BATCH} x {PROMPT} frames, "
+        f"{float(batch['mask'].float().mean()):.4f} of them masked; built "
+        f"on the card in {time.perf_counter() - t0:.2f} s")
+    with torch.no_grad():
+        tf.forward_train(cfg, params, batch)          # warm up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timing = None
+    if dtype == "bfloat16":
+        fwd = _serve_forward(cfg, params, batch, errs, hold=False)
+        launches, seconds, timing = (fwd["launches"], fwd["seconds"],
+                                     fwd["timing"])
+    else:
+        launches, (q, k, v, _), seconds = _forward_vs_ref(cfg, params, batch)
+        err = _check_close(fa.flash_attention(q, k, v, causal=False),
+                           fa.flash_attention_ref(q, k, v, causal=False),
+                           ATTN_TOL["float32"],
+                           "flash_attention on hubert's layer 0, float32")
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+        log(f"{tag} flash_attention on layer 0's float32 inputs: kernel "
+            f"within 2e-6 of plain (largest difference {err})")
+        fa.flash_attention.launches = launches    # checks do not count
+    with torch.no_grad():
+        fa.flash_attention.launches = 0
+        loss_k = float(loss_fn(cfg, params, batch)[0])
+        loss_launches = fa.flash_attention.launches
+        loss_r = float(loss_fn(dataclasses.replace(cfg, attn_impl="ref"),
+                               params, batch)[0])
+    peak = torch.cuda.max_memory_allocated()
+    hold = dtype == "float32"
+    fwd_s, fwd_ref_s = seconds
+    log(f"{tag} {dtype}: forward_train {fwd_s:.4f} s through the kernel "
+        f"({SERVE_BATCH * PROMPT / fwd_s:.1f} frames/s), {fwd_ref_s:.4f} s "
+        f"through the ref route ({SERVE_BATCH * PROMPT / fwd_ref_s:.1f} "
+        f"frames/s); loss_fn {loss_k} (kernel route, {loss_launches} "
+        f"flash_attention launches) vs {loss_r} (ref route), "
+        f"{abs(loss_k - loss_r) / abs(loss_r):.3e} of it ("
+        + ("limit 1e-4" if hold else f"printed, not held: bf16 rounding "
+           f"through {cfg.n_layers} layers; held in float32")
+        + f"); peak device memory {peak / 1e9:.3f} GB")
+    if launches != cfg.n_layers or loss_launches != cfg.n_layers:
+        raise AssertionError(f"{cfg.name}: flash_attention launched "
+                             f"{launches} / {loss_launches} times in "
+                             f"forward_train / loss_fn, not {cfg.n_layers}")
+    if not math.isfinite(loss_k) or (
+            hold and abs(loss_k - loss_r) > 1e-4 * abs(loss_r)):
+        raise AssertionError(f"{cfg.name} {dtype}: kernel route loss "
+                             f"{loss_k} off the ref route's {loss_r}")
+    del params, batch
+    _free_cuda()
+    return {"flash_attention": launches, "decode_attention": 0,
+            "flash_timing": timing, "forward_s": fwd_s,
+            "forward_ref_s": fwd_ref_s, "peak_gb": peak / 1e9}
+
+
+def phase_modalities(errs: dict) -> dict:
+    """qwen2-vl-72b at its published widths, its depth cut to fit the card
+    (:data:`VLM_LAYERS`), through the serving path (:func:`_family_cell`,
+    then :func:`_family_cell_f32`), and hubert-xlarge at full size through
+    forward_train and loss_fn (:func:`_encoder_cell`), bf16 then float32."""
+    out = {}
+    t0 = time.perf_counter()
+    out[VLM_ARCH] = c = _family_cell(VLM_ARCH, errs, VLM_LAYERS["bfloat16"])
+    t1 = time.perf_counter()
+    _family_cell_f32(VLM_ARCH, errs, VLM_LAYERS["float32"])
+    log(f"[{VLM_ARCH}] on {_smi()}: {VLM_LAYERS['bfloat16']} of 80 layers "
+        f"in bf16 ({VLM_LAYERS['float32']} in float32): prefill "
+        f"{c['prefill_s']:.4f} s, decode {c['step_ms']:.4f} ms a step "
+        f"(bound {c['step_bound_ms']:.4f} ms), peak {c['peak_gb']:.3f} GB, "
+        f"launches decode_attention {c['decode_attention']}, "
+        f"flash_attention {c['flash_attention']}; cell {t1 - t0:.1f} s in "
+        f"bf16, {time.perf_counter() - t1:.1f} s in float32")
+    t0 = time.perf_counter()
+    out[AUDIO_ARCH] = c = _encoder_cell("bfloat16", errs)
+    t1 = time.perf_counter()
+    f32 = _encoder_cell("float32", errs)
+    log(f"[{AUDIO_ARCH}] on {_smi()}: forward_train {c['forward_s']:.4f} s "
+        f"(ref route {c['forward_ref_s']:.4f} s) in bf16, "
+        f"{f32['forward_s']:.4f} s ({f32['forward_ref_s']:.4f} s) in "
+        f"float32; peak {c['peak_gb']:.3f} / {f32['peak_gb']:.3f} GB; "
+        f"flash_attention launches {c['flash_attention']} a forward_train; "
+        f"cell {t1 - t0:.1f} s in bf16, {time.perf_counter() - t1:.1f} s in "
+        f"float32")
     return out
 
 
@@ -4096,6 +4390,8 @@ def _main(t_start: float, device: dict, children: list) -> int:
     log(f"[done] serving phases {time.perf_counter() - t_start:.1f} s")
     families = phase_families(errs)
     log(f"[done] families phase {time.perf_counter() - t_start:.1f} s")
+    modalities = phase_modalities(errs)
+    log(f"[done] modalities phase {time.perf_counter() - t_start:.1f} s")
     finish_cpu_rows(children, experiments["cuda_rows"])
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     kernels = [{
@@ -4134,14 +4430,18 @@ def _main(t_start: float, device: dict, children: list) -> int:
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces, "launches": serving["launches"][name],
             "max_abs_err": errs[name], **serving["timing"][name],
-            "families_launches": {a: c[name] for a, c in families.items()},
+            "families_launches": {a: c[name] for a, c in
+                                  {**families, **modalities}.items()},
             "hd256": hd256[name],
-            "recurrentgemma_2b": families["recurrentgemma-2b"][
+            **{key: cells[arch][
                 "decode_timing" if name == "decode_attention"
-                else "flash_timing"],
-            "qwen2_moe_a2_7b": families["qwen2-moe-a2.7b"][
-                "decode_timing" if name == "decode_attention"
-                else "flash_timing"]})
+                else "flash_timing"]
+               for key, arch, cells in (
+                   ("recurrentgemma_2b", "recurrentgemma-2b", families),
+                   ("qwen2_moe_a2_7b", "qwen2-moe-a2.7b", families),
+                   ("qwen2_vl_72b", VLM_ARCH, modalities))},
+            **({"hubert_xlarge": modalities[AUDIO_ARCH]["flash_timing"]}
+               if name == "flash_attention" else {})})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": device}))
     return 0

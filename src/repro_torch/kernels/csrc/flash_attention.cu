@@ -38,18 +38,22 @@
 // stays in shared memory, and k/v tiles of 64 keys go through a ring of 2
 // shared-memory stages by cp.async 16-byte copies (rows past Sq or Skv
 // zero-filled), each tile stored in the 128-byte swizzle that wgmma's
-// shared-memory descriptors read (hd 32 is zero-padded to 64 columns, hd
-// 128 is two swizzle atoms, hd 256 four: 161 KB of shared memory a block,
-// one block an SM).
+// shared-memory descriptors read, as 64-column atoms: hd 32 is zero-padded
+// to one atom, hd 80 (hubert-xlarge) to two (a 160-byte row is ten 16-byte
+// copies, chunks 10-15 stay zero), hd 128 is two atoms, hd 256 four (161
+// KB of shared memory a block, one block an SM).
 //   S = Q K^T: wgmma m64n64k16, bf16 operands from shared memory, f32
-//     accumulators, hd / 16 k-steps; the scale is applied to the f32
-//     scores after the product (the plain version's f32(q) * scale at hd
-//     64, where scale = 1/8 is exact; within f32 rounding at hd 32, 128).
+//     accumulators, hd / 16 k-steps (the padding is never read); the scale
+//     is applied to the f32 scores after the product (the plain version's
+//     f32(q) * scale at hd 64, where scale = 1/8 is exact; within f32
+//     rounding at hd 32, 80, 128 and 256, where 1/sqrt(hd) is not).
 //   Online softmax on the accumulator registers: a row lives in the 4
 //     lanes of a quad, reduced with two shuffles; expf, m/l/acc in f32.
-//   O += P V: wgmma m64n{hd}k16 with P from registers and V from shared
-//     memory (transposed operand), f32 accumulators; at hd 256 two
-//     m64n128k16 halves, O taking 128 registers a thread.  P is f32 and the
+//   O += P V: wgmma m64n{padded hd}k16 with P from registers and V from
+//     shared memory (transposed operand), f32 accumulators; at hd 80 the
+//     m64n128k16 of hd 128, whose 48 padded output columns hold zeros and
+//     are not stored; at hd 256 two m64n128k16 halves, O taking 128
+//     registers a thread.  P is f32 and the
 //     tensor cores take bf16, so P goes in three bf16 parts, p1 = bf16(p),
 //     p2 = bf16(p - p1), p3 = bf16(p - p1 - p2), each against the same V
 //     tile: v is bf16 and exact, the parts carry p to about 2^-24, and the
@@ -70,10 +74,12 @@
 //
 // fp32: bound by operations at the fp32 CUDA-core rate.  One block of 4
 // warps per (q tile, head, batch), a q tile of 4 * R rows; 32-key tiles
-// staged in shared memory (k rows padded to hd + 1 floats so that lane j
-// reading k[j][d] hits bank (j + d) % 32).  For the scores a lane owns one
-// key; for p @ v a lane owns hd / 32 output dims.  Separate fp32 multiplies
-// and adds (built with --fmad=false, expf not __expf).
+// staged in shared memory (k rows padded to hd + 1 floats, an odd count,
+// so that lane j reading k[j][d] hits bank (j * (hd + 1) + d) % 32, a
+// different bank for each lane).  For the scores a lane owns one key; for
+// p @ v a lane owns the output dims lane, lane + 32, ... below hd
+// (ceil(hd / 32) slots, the last one idle past hd at hd 80).  Separate
+// fp32 multiplies and adds (built with --fmad=false, expf not __expf).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -128,7 +134,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  int q_offset, float scale) {
   using L = F32Smem<HD, R>;
   constexpr int BQ = L::kBQ;
-  constexpr int DPL = HD / 32;      // output dims per lane
+  constexpr int DPL = (HD + 31) / 32;   // output dim slots per lane
   extern __shared__ __align__(16) float f32_smem[];
   float (*qs)[HD] = reinterpret_cast<float (*)[HD]>(f32_smem + L::kQ);
   float (*ks)[HD + 1] = reinterpret_cast<float (*)[HD + 1]>(f32_smem + L::kK);
@@ -141,6 +147,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int kvh = head / (h / kv);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  // Slot c holds output dim lane + 32 c, if that is below HD.
+  auto dim_ok = [&](int c) { return HD % 32 == 0 || lane + 32 * c < HD; };
 
   // The q tile, times scale, in f32 (as the Pallas body); rows past Sq
   // read as 0 and are never stored.
@@ -223,7 +231,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < kBK; ++j) {
       float vv[DPL];
 #pragma unroll
-      for (int c = 0; c < DPL; ++c) vv[c] = vs[j][lane + 32 * c];
+      for (int c = 0; c < DPL; ++c)
+        vv[c] = dim_ok(c) ? vs[j][lane + 32 * c] : 0.0f;
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const float pj = ps[warp][r][j];
@@ -241,7 +250,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float denom = fmaxf(l[r], 1e-30f);
     float* dst = out + (((long long)b * sq + qi) * h + head) * HD;
 #pragma unroll
-    for (int c = 0; c < DPL; ++c) dst[lane + 32 * c] = acc[r][c] / denom;
+    for (int c = 0; c < DPL; ++c)
+      if (dim_ok(c)) dst[lane + 32 * c] = acc[r][c] / denom;
   }
 }
 
@@ -250,8 +260,8 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        void* out, int b, int sq, int skv, int h, int kv,
                        int causal, int window, int q_offset, float scale,
                        cudaStream_t stream) {
-  // R rows per warp: 8 up to hd 64, 4 above (43 KB of shared memory at hd
-  // 128, 84 KB at hd 256).
+  // R rows per warp: 8 up to hd 64, 4 above (27 KB of shared memory at hd
+  // 80, 43 KB at hd 128, 84 KB at hd 256).
   constexpr int R = HD <= 64 ? 8 : 4;
   constexpr int BQ = kWarps * R;
   constexpr int smem = F32Smem<HD, R>::kBytes;
@@ -452,7 +462,8 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                    __nv_bfloat16* __restrict__ out, int sq, int skv, int h,
                    int kv, int causal, int window, int q_offset,
                    float scale) {
-  constexpr int HDP = HD < 64 ? 64 : HD;      // columns as stored (padded)
+  static_assert(HD % 16 == 0, "rows are copied and multiplied in 16s");
+  constexpr int HDP = (HD + 63) / 64 * 64;    // columns as stored (padded)
   constexpr int TILE = kBM * HDP * 2;         // bytes of one tile
   constexpr int NO = HDP / 2;                 // O accumulators per thread
   extern __shared__ uint8_t smem_raw[];
@@ -520,7 +531,7 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
 
-    // S = Q K^T over hd in k-steps of 16.
+    // S = Q K^T over hd in k-steps of 16 (not over the padding).
     float s[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
@@ -529,7 +540,7 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     }
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < HDP / 16; ++kk) {
+    for (int kk = 0; kk < HD / 16; ++kk) {
       const uint32_t off = (kk / 4) * kAtom + (kk % 4) * 32;
       wgmma_ss_n64(s, gmma_desc(qs + off, 16, 1024),
                    gmma_desc(ks(st) + off, 16, 1024), kk > 0);
@@ -661,7 +672,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         void* out, int b, int sq, int skv, int h, int kv,
                         int causal, int window, int q_offset, float scale,
                         cudaStream_t stream) {
-  constexpr int HDP = HD < 64 ? 64 : HD;
+  constexpr int HDP = (HD + 63) / 64 * 64;
   constexpr int smem = 5 * kBM * HDP * 2 + 1024;   // q + 2 x (k, v) + align
   auto kernel = flash_wgmma_kernel<HD>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -694,7 +705,7 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
 }  // namespace
 
 // Returns the CUDA error of the launch (0 on success).  dtype: 0 fp32,
-// 1 bf16; hd 32, 64, 128 or 256; the wrapper checks shapes, contiguity and (for
+// 1 bf16; hd 32, 64, 80, 128 or 256; the wrapper checks shapes, contiguity and (for
 // bf16's 16-byte copies) that q, k and v start on a 16-byte boundary.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, int dtype,
@@ -709,6 +720,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                         window, q_offset, scale, s);
     case 64:
       return launch<64>(dtype, q, k, v, out, b, sq, skv, h, kv, causal,
+                        window, q_offset, scale, s);
+    case 80:
+      return launch<80>(dtype, q, k, v, out, b, sq, skv, h, kv, causal,
                         window, q_offset, scale, s);
     case 128:
       return launch<128>(dtype, q, k, v, out, b, sq, skv, h, kv, causal,

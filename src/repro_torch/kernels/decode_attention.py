@@ -14,7 +14,9 @@ The serving engine's decode step runs attention through this module when
   version, a CUDA tensor to the hand-written kernel in
   ``csrc/decode_attention.cu`` (built on first use by :mod:`._build`): one
   launch of clusters of 8 blocks per (batch, kv head), merged in shared
-  memory, with no scratch in device memory.  A CUDA call launches the
+  memory, with no scratch in device memory, at head dims 32, 64, 128 and
+  256 (:data:`HEAD_DIMS`; the Pallas kernel takes any, and no model with a
+  decode step has another; ROADMAP Queue B, B13).  A CUDA call launches the
   kernel or raises; it never falls back.  Each call that launches adds one
   to ``decode_attention.launches``.
 """
@@ -30,9 +32,10 @@ from ..models.layers import decode_attention as decode_attention_ref
 from ._build import device_of, entry
 from .flash_attention import _DTYPES, check_aligned, check_kernel_inputs
 
-__all__ = ["MAX_GROUP", "bytes_moved", "decode_attention",
+__all__ = ["HEAD_DIMS", "MAX_GROUP", "bytes_moved", "decode_attention",
            "decode_attention_ref"]
 
+HEAD_DIMS = (32, 64, 128, 256)  # the head dims the kernel is built for
 MAX_GROUP = 16      # query heads per kv head the kernel takes
 
 
@@ -66,7 +69,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if device_of("decode_attention", q, k_cache, v_cache, length) == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, length,
                                     window=window)
-    check_kernel_inputs("decode_attention", q, k_cache, v_cache)
+    check_kernel_inputs("decode_attention", q, k_cache, v_cache,
+                        head_dims=HEAD_DIMS)
     b, one, h, hd = q.shape
     s, kv = k_cache.shape[1], k_cache.shape[2]
     if one != 1 or k_cache.shape != (b, s, kv, hd) \

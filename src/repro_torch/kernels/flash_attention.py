@@ -12,8 +12,9 @@ pass runs attention through this module, as the JAX package's
   version, a CUDA tensor to the hand-written kernel in
   ``csrc/flash_attention.cu`` (built on first use by :mod:`._build`):
   bfloat16 inputs on the tensor cores (wgmma, P in three bf16 parts),
-  float32 inputs on the CUDA cores, at head dims 32, 64, 128 and 256
-  (:data:`HEAD_DIMS`; the Pallas kernel takes any).  A
+  float32 inputs on the CUDA cores, at head dims 32, 64, 80, 128 and 256
+  (:data:`HEAD_DIMS`; the Pallas kernel takes any; 80 is hubert-xlarge's,
+  bidirectional).  A
   CUDA call launches the kernel or raises; it never falls back.  Each
   launch adds one to ``flash_attention.launches``.  The kernel is forward
   only, like the Pallas kernel: a CUDA call on inputs that need a gradient
@@ -33,7 +34,7 @@ from ._build import device_of, entry
 __all__ = ["HEAD_DIMS", "NEG_INF", "bytes_moved", "flash_attention",
            "flash_attention_ref", "flops", "valid_pairs"]
 
-HEAD_DIMS = (32, 64, 128, 256)      # the head dims the kernels are built for
+HEAD_DIMS = (32, 64, 80, 128, 256)  # the head dims the kernel is built for
 
 # dtype codes of the C entry points.
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -93,9 +94,11 @@ def bytes_moved(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
     return sum(t.numel() * t.element_size() for t in (q, q, k, v))
 
 
-def check_kernel_inputs(name: str, *tensors: torch.Tensor) -> None:
+def check_kernel_inputs(name: str, *tensors: torch.Tensor,
+                        head_dims: tuple[int, ...] = HEAD_DIMS) -> None:
     """Raise for what the CUDA attention kernels do not take: mixed or
-    other dtypes, a head dim outside :data:`HEAD_DIMS`, or inputs that
+    other dtypes, a head dim outside ``head_dims`` (this kernel's
+    :data:`HEAD_DIMS` unless the caller names its own), or inputs that
     need a gradient (the kernels have no backward, as the Pallas kernels
     have none)."""
     dtype = tensors[0].dtype
@@ -103,9 +106,9 @@ def check_kernel_inputs(name: str, *tensors: torch.Tensor) -> None:
         raise TypeError(f"the {name} kernel takes float32 or bfloat16 "
                         f"inputs of one dtype, not "
                         f"{[str(t.dtype) for t in tensors]}")
-    if tensors[0].shape[-1] not in HEAD_DIMS:
+    if tensors[0].shape[-1] not in head_dims:
         raise ValueError(f"the {name} kernel is built for head dims "
-                         f"{HEAD_DIMS}, not {tensors[0].shape[-1]}")
+                         f"{head_dims}, not {tensors[0].shape[-1]}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(f"the {name} kernel is forward only; take "
                            f"attn_impl='ref' to differentiate")

@@ -7,8 +7,11 @@ the card (or the CPU).
 The same flags as the JAX package's ``repro.launch.serve``, plus
 ``--device`` (default: CUDA; ``--device cpu`` runs on the CPU).  Every
 decoder family the port runs is served: dense, MoE (``qwen2-moe-a2.7b``,
-``qwen3-moe-235b-a22b``), the RG-LRU hybrid (``recurrentgemma-2b``) and
-xLSTM (``xlstm-125m``).  Like the
+``qwen3-moe-235b-a22b``), the RG-LRU hybrid (``recurrentgemma-2b``),
+xLSTM (``xlstm-125m``) and the M-RoPE VLM (``qwen2-vl-72b``, its prompts
+a quarter vision patches from the stub); the encoder-only
+``hubert-xlarge`` has nothing to decode and exits, as in the reference.
+Like the
 reference, the CLI always serves the reduced config with the config's
 ``attn_impl`` (logged in ROADMAP Queue C); a full-width run, or one
 through the kernels, goes through :class:`ServingEngine` directly, as
@@ -43,6 +46,8 @@ def main(argv: list[str] | None = None) -> None:
     args = ap.parse_args(argv)
 
     cfg = get(args.arch).reduced()
+    if not cfg.causal:
+        raise SystemExit(f"{cfg.name} is encoder-only; nothing to decode")
     dev = resolve_device(args.device)
     params = init_params(cfg, seed=args.seed, device=dev)
     engine = ServingEngine(cfg, params,

@@ -5,7 +5,9 @@
 
 The same flags as the JAX package's ``repro.launch.train``, plus
 ``--device`` (default: CUDA; ``--device cpu`` runs on the CPU).  It trains
-every decoder family the port runs (dense, MoE, RG-LRU, xLSTM).  Like the
+every model family the port runs (dense, MoE, RG-LRU, xLSTM, the M-RoPE
+VLM on token and patch batches, the encoder-only audio model on frames
+with its masked-prediction loss).  Like the
 reference, ``--reduced`` is declared ``store_true`` with default True, so
 the CLI always runs the reduced config (logged in ROADMAP Queue C);
 a full-width run goes through :class:`FaultTolerantTrainer` directly, as

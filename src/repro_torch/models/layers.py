@@ -1,6 +1,7 @@
-"""Model primitives: RMSNorm, RoPE, GQA attention, SwiGLU (plain torch).
+"""Model primitives: RMSNorm, RoPE and M-RoPE, GQA attention, SwiGLU
+(plain torch).
 
-The port of ``repro/models/layers.py:27-257`` for dense decoders.  No
+The port of ``repro/models/layers.py:27-257``.  No
 Pallas kernel sits in this module, so plain torch is the port:
 
 * the init helpers draw from a ``torch.Generator`` on the target device
@@ -26,8 +27,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["NEG_INF", "apply_rope", "chunked_attention", "decode_attention",
-           "dense_init", "norm_init", "rms_norm", "rope_angles", "swiglu",
-           "swiglu_init"]
+           "dense_init", "mrope_angles", "norm_init", "rms_norm",
+           "rope_angles", "swiglu", "swiglu_init"]
 
 NEG_INF = -1e30
 
@@ -66,19 +67,50 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# RoPE
+# RoPE and M-RoPE
 # ---------------------------------------------------------------------------
+
+def _inv_freq(head_dim: int, theta: float,
+              device: torch.device) -> torch.Tensor:
+    """The head_dim//2 rotary frequencies, float32."""
+    half = head_dim // 2
+    exponent = torch.arange(0, half, dtype=torch.float32,
+                            device=device) / half
+    return 1.0 / torch.pow(
+        torch.tensor(theta, dtype=torch.float32, device=device), exponent)
+
 
 def rope_angles(positions: torch.Tensor, head_dim: int,
                 theta: float) -> tuple[torch.Tensor, torch.Tensor]:
     """cos/sin tables. positions (..., S) -> (..., S, head_dim//2), fp32."""
-    half = head_dim // 2
-    exponent = torch.arange(0, half, dtype=torch.float32,
-                            device=positions.device) / half
-    inv_freq = 1.0 / torch.pow(
-        torch.tensor(theta, dtype=torch.float32, device=positions.device),
-        exponent)
+    inv_freq = _inv_freq(head_dim, theta, positions.device)
     ang = positions.float()[..., None] * inv_freq
+    return torch.cos(ang), torch.sin(ang)
+
+
+def mrope_angles(positions_thw: torch.Tensor,
+                 sections: tuple[int, int, int], head_dim: int,
+                 theta: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """M-RoPE (Qwen2-VL): positions_thw (B, S, 3) -> (B, S, head_dim//2)
+    tables.
+
+    The head_dim//2 rotary frequencies are split into (t, h, w) sections;
+    each frequency rotates by its section's positional component.  The
+    frequencies are :func:`rope_angles`' own, so text tokens, which carry
+    (t, h, w) = (pos, pos, pos), get its bits.
+    """
+    half = head_dim // 2
+    st, sh, sw = sections
+    if st + sh + sw != half:
+        raise ValueError(f"M-RoPE sections {sections} must sum to {half}")
+    dev = positions_thw.device
+    # Which positional component drives each frequency.
+    comp = torch.cat([torch.full((n,), c, dtype=torch.long, device=dev)
+                      for c, n in enumerate(sections)])
+    inv_freq = _inv_freq(head_dim, theta, dev)
+    pos = torch.gather(positions_thw.float(), -1,
+                       comp.expand(positions_thw.shape[:2] + (half,)))
+    ang = pos * inv_freq
     return torch.cos(ang), torch.sin(ang)
 
 

@@ -1,10 +1,13 @@
 """Decoder blocks: parameter init and the three execution modes.
 
-The port of ``repro/models/transformer.py`` for token inputs: global
-("attn") and sliding-window ("local") attention blocks, RG-LRU ("rec",
-:mod:`.rglru`) and xLSTM ("mlstm", "slstm", :mod:`.xlstm`) blocks, each
-attention or RG-LRU block with an FFN (SwiGLU, or the MoE of :mod:`.moe`),
-RMSNorm, RoPE, token embedding and an LM head (untied or tied), run as
+The port of ``repro/models/transformer.py``: global ("attn") and
+sliding-window ("local") attention blocks, RG-LRU ("rec", :mod:`.rglru`)
+and xLSTM ("mlstm", "slstm", :mod:`.xlstm`) blocks, each attention or
+RG-LRU block with an FFN (SwiGLU, or the MoE of :mod:`.moe`), RMSNorm,
+RoPE or M-RoPE, the inputs (token embedding; for a VLM, vision patch
+embeddings in place of the tokens at the ``vision_mask`` positions; for an
+encoder-only model, frame embeddings as they are, and no ``embed`` leaf)
+and an LM head (untied or tied), run as
 
 * :func:`forward_train`: the teacher-forced pass -> logits and the
   MoE layers' summed router aux loss;
@@ -46,10 +49,13 @@ MoE layers drop at ``cfg.capacity_factor`` in :func:`forward_train` and
 :func:`prefill`, and are dropless in :func:`decode_step`, as in the
 reference.
 
-Not ported yet, and raising ``NotImplementedError``: M-RoPE (ROADMAP
-Queue A item 10.5) and encoder-only inputs (10.6).  ``cfg.remat`` is
-ignored: the port keeps every activation, which does not change the
-numbers.
+M-RoPE configs (``cfg.mrope_sections``) take their tables from the
+batch's ``positions_thw`` (B, S, 3), or (pos, pos, pos) without it; a
+decode step places the new token at ``positions_thw`` (B, 3) if given,
+else at (length, length, length), as the reference does.  Encoder-only
+configs (``embed_inputs=False``, bidirectional) have no decode step.
+``cfg.remat`` is ignored: the port keeps every activation, which does not
+change the numbers.
 """
 
 from __future__ import annotations
@@ -61,8 +67,9 @@ import torch
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..kernels import ops
-from .layers import (apply_rope, chunked_attention, dense_init, norm_init,
-                     rms_norm, rope_angles, swiglu, swiglu_init)
+from .layers import (apply_rope, chunked_attention, dense_init,
+                     mrope_angles, norm_init, rms_norm, rope_angles, swiglu,
+                     swiglu_init)
 from .moe import moe_apply, moe_init
 from .rglru import (rglru_block_apply, rglru_block_init, rglru_decode_step,
                     rglru_init_state)
@@ -83,16 +90,10 @@ def param_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the parts of ``cfg`` the port does not run yet."""
+    """Raise for a block kind or ``attn_impl`` the port does not know."""
     for kind in cfg.blocks:
         if kind not in _KINDS:
             raise ValueError(f"unknown block kind {kind!r}")
-    if cfg.mrope_sections is not None:
-        raise NotImplementedError(f"{cfg.name}: M-RoPE is ROADMAP Queue A "
-                                  f"item 10.5")
-    if not cfg.embed_inputs:
-        raise NotImplementedError(f"{cfg.name}: encoder-only inputs are "
-                                  f"ROADMAP Queue A item 10.6")
     ops.check_impl(cfg.attn_impl)
 
 
@@ -149,10 +150,11 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     n_tail = cfg.n_layers - n_rep * len(unit)
 
     params: dict = {}
-    emb = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
-                      dtype=torch.float32, device=dev) \
-        * (1.0 / math.sqrt(cfg.d_model))
-    params["embed"] = emb.to(dt)
+    if cfg.embed_inputs:
+        emb = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
+                          dtype=torch.float32, device=dev) \
+            * (1.0 / math.sqrt(cfg.d_model))
+        params["embed"] = emb.to(dt)
     params["norm_out"] = norm_init(cfg.d_model, dt, dev)
     if not cfg.tie_embeddings:
         params["head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dt)
@@ -362,9 +364,40 @@ def _stack_tree(trees: list):
 
 
 def _embed(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
-    tokens = batch["tokens"].to(device=params["embed"].device,
-                                dtype=torch.long)
-    return params["embed"][tokens]
+    """The input sequence (B, S, d) on the parameters' device: frame
+    embeddings as they are (encoder-only), else token embeddings, with a
+    VLM's patch embeddings in their place at the ``vision_mask``
+    positions, in order (the i-th vision position takes patch i, through
+    the reference's ``clip(cumsum - 1)`` gather: no host read-back)."""
+    dev = params["norm_out"].device     # an encoder has no "embed" leaf
+    if not cfg.embed_inputs:
+        return batch["frames"].to(dev)
+    x = params["embed"][batch["tokens"].to(device=dev, dtype=torch.long)]
+    if "vision_embeds" in batch:
+        mask = batch["vision_mask"].to(dev)                   # (B, S) bool
+        patches = batch["vision_embeds"].to(dev)              # (B, P, d)
+        idx = torch.clamp(torch.cumsum(mask, dim=1) - 1, 0,
+                          patches.shape[1] - 1)
+        gathered = torch.gather(
+            patches, 1, idx[..., None].expand(-1, -1, patches.shape[2]))
+        x = torch.where(mask[..., None], gathered.to(x.dtype), x)
+    return x
+
+
+def _rope_tables(cfg: ModelConfig, positions: torch.Tensor,
+                 thw: torch.Tensor | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin for the attention layers at ``positions`` ((S,) or (B, S)):
+    RoPE tables, or for M-RoPE (B, S, half) tables from ``thw`` (B, S, 3),
+    by default (pos, pos, pos)."""
+    if cfg.mrope_sections is None:
+        return rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    if thw is None:     # text only: (t, h, w) all equal the text position
+        thw = positions[..., None].expand(*positions.shape, 3)
+        if thw.dim() == 2:
+            thw = thw[None]
+    return mrope_angles(thw.to(positions.device), cfg.mrope_sections,
+                        cfg.head_dim, cfg.rope_theta)
 
 
 def _head(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -398,7 +431,7 @@ def forward_train(cfg: ModelConfig, params: dict, batch: dict
     check_supported(cfg)
     x = _embed(cfg, params, batch)
     positions = torch.arange(x.shape[1], device=x.device)
-    cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    cos, sin = _rope_tables(cfg, positions, batch.get("positions_thw"))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, p, _ in _layers(cfg, params):
         x, layer_aux = _block_apply_full(cfg, kind, p, x, cos, sin)
@@ -452,8 +485,8 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, *,
     if "attn" in cfg.blocks and s > cache_len:
         raise ValueError(f"a {s}-token prompt does not fit a cache of "
                          f"{cache_len}")
-    cos, sin = rope_angles(torch.arange(s, device=x.device), cfg.head_dim,
-                           cfg.rope_theta)
+    cos, sin = _rope_tables(cfg, torch.arange(s, device=x.device),
+                            batch.get("positions_thw"))
     cache = init_cache(cfg, b, cache_len, device=x.device)
     for kind, p, entry in _layers(cfg, params, cache):
         x = _block_prefill(cfg, kind, p, x, cos, sin, entry)
@@ -462,19 +495,25 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, *,
 
 
 def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
-                cache: dict) -> tuple[torch.Tensor, dict]:
+                cache: dict, positions_thw: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, dict]:
     """One decode step. token (B,) -> (logits (B,V), cache).
 
     Writes the token's k and v into ``cache``'s attention entries in place
     and returns a cache holding those entries, new recurrent states and
-    ``length`` + 1 (a new tensor).
+    ``length`` + 1 (a new tensor).  ``positions_thw`` (B, 3) overrides the
+    new token's M-RoPE position (default (length, length, length)).
     """
     check_supported(cfg)
+    if not cfg.embed_inputs:
+        raise ValueError(f"{cfg.name}: encoder-only model has no decode step")
     x = _embed(cfg, params, {"tokens": token[:, None]})
     length = cache["length"]
     new_length = length + 1
     # Per-row positions: cos/sin (B, 1, hd/2).
-    cos, sin = rope_angles(length[:, None], cfg.head_dim, cfg.rope_theta)
+    cos, sin = _rope_tables(
+        cfg, length[:, None],
+        None if positions_thw is None else positions_thw[:, None, :])
     slots: dict = {}
     new_entries = []
     for kind, p, entry in _layers(cfg, params, cache):

@@ -10,8 +10,13 @@ kernel when ``cfg.attn_impl != "ref"`` (:mod:`repro_torch.models`).
 As in the reference, the argmax of the prefill logits is the first token
 fed to decode and is not returned; each step returns the chosen token and
 the log-softmax of the unscaled logits at it.  The same engine serves every
-decoder family the port runs (dense, MoE, the RG-LRU hybrid, xLSTM): the
-cache carries the attention entries and the recurrent states alike.  ``jax.random.categorical``
+decoder family the port runs (dense, MoE, the RG-LRU hybrid, xLSTM, the
+M-RoPE VLM): the cache carries the attention entries and the recurrent
+states alike.  A VLM batch (tokens, ``vision_embeds``, ``vision_mask``,
+``positions_thw``) goes whole to prefill; the decode steps take no
+``positions_thw``, as the reference's ``_step`` passes none, so each new
+token sits at (length, length, length) (ROADMAP Queue C R3).  An
+encoder-only config is refused: it has no decode step.  ``jax.random.categorical``
 cannot be replayed in torch, so a sampled token is the Gumbel-max draw
 ``argmax(logits / T - log(-log U))`` with U uniform from a
 ``torch.Generator`` on the device, seeded with ``seed``; greedy decoding

@@ -2,7 +2,9 @@
 
 The port of ``repro/train/loop.py:49-253``.  The trainer executes real
 train steps (model forward, ``backward``, then the port's AdamW) on the
-device and overlays the paper's fault/checkpoint schedule on a virtual
+device (the host batch of :class:`SyntheticLM`, tokens, VLM patches and
+positions or audio frames, labels and mask, moved there by the model and
+the loss) and overlays the paper's fault/checkpoint schedule on a virtual
 clock:
 
   * every step costs ``step_time`` virtual seconds (measured on the card

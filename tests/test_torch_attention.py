@@ -263,7 +263,11 @@ CARD_TOL = {"float32": dict(atol=2e-6, rtol=2e-6),
     (2, 130, 130, 4, 2, 32, True, 0, 0),
     (1, 200, 200, 2, 1, 128, True, 0, 0),
     (1, 130, 130, 4, 2, 128, True, 48, 0),
-    (1, 70, 130, 2, 2, 64, False, 0, 0)])
+    (1, 70, 130, 2, 2, 64, False, 0, 0),
+    # Head dim 80 (hubert-xlarge): bidirectional, uneven tiles, a window,
+    # q_offset.
+    (2, 128, 128, 4, 4, 80, False, 0, 0), (1, 130, 200, 4, 2, 80, False, 0, 0),
+    (2, 130, 130, 4, 2, 80, True, 64, 0), (1, 64, 200, 4, 2, 80, True, 0, 136)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_kernel_matches_plain_on_card(case, dtype):
     _card()

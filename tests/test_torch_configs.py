@@ -14,9 +14,10 @@
 * The MoE, RG-LRU hybrid and xLSTM configs (``qwen3-moe-235b-a22b``,
   ``qwen2-moe-a2.7b``, ``mixtral-8x7b``, ``recurrentgemma-2b``,
   ``xlstm-125m``) do the same at the same tolerance.
-* The families still unported (M-RoPE, encoder-only) raise
-  ``NotImplementedError`` naming their ROADMAP item when the port is
-  asked to build them.
+* The M-RoPE VLM and the encoder-only audio config (``qwen2-vl-72b``,
+  ``hubert-xlarge``) pass ``check_supported`` and do the same on the
+  reference's ``make_batch`` (vision patches and (t, h, w) positions;
+  frames, labels and a mask for the masked-prediction loss).
 """
 
 import dataclasses
@@ -29,6 +30,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from repro import configs as ref_configs  # noqa: E402
+from repro.configs.base import InputShape  # noqa: E402
 from repro.models import model as ref_model  # noqa: E402
 from repro.models import transformer as ref_tf  # noqa: E402
 
@@ -41,8 +43,9 @@ ARCHS = sorted(ref_configs.REGISTRY) + sorted(ref_configs.EXTRAS)
 DENSE = ("llama3-405b", "internlm2-20b", "gemma2-9b")
 FAMILIES = ("qwen3-moe-235b-a22b", "qwen2-moe-a2.7b", "mixtral-8x7b",
             "recurrentgemma-2b", "xlstm-125m")
-# The families the port's decoder does not run yet, by ROADMAP item.
-UNPORTED = {"qwen2-vl-72b": "10.5", "hubert-xlarge": "10.6"}
+# The last two families ported (ROADMAP 10.5 M-RoPE, 10.6 encoder-only
+# inputs).
+MODALITIES = ("hubert-xlarge", "qwen2-vl-72b")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -127,9 +130,24 @@ def _forward_matches_reference(arch, scaled=False):
                                rtol=1e-5)
 
 
-@pytest.mark.parametrize("arch", sorted(UNPORTED))
-def test_unported_family_raises_naming_its_item(arch):
-    with pytest.raises(NotImplementedError, match=UNPORTED[arch]):
-        port_tf.init_params(configs.get(arch).reduced(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_tf.check_supported(configs.get(arch))
+@pytest.mark.parametrize("arch", MODALITIES)
+def test_modality_config_forward_matches_reference(arch):
+    """ROADMAP items 10.5 and 10.6 are ported: the full config passes
+    ``check_supported``, and the reduced one's forward and loss on the
+    reference's ``make_batch`` (cast to numpy and carried across) agree
+    at 1e-5."""
+    cfg = dataclasses.replace(configs.get(arch).reduced(), dtype="float32")
+    port_tf.check_supported(configs.get(arch))
+    ref_params, _ = ref_tf.init_params(cfg, jax.random.PRNGKey(0))
+    params = params_from_numpy(jax.tree.map(np.asarray, ref_params), "cpu")
+    batch_r = ref_model.make_batch(cfg, InputShape("t", 32, 2, "train"),
+                                   jax.random.PRNGKey(1))
+    batch_t = {k: torch.from_numpy(np.array(v)) for k, v in batch_r.items()}
+    logits_r, _ = ref_tf.forward_train(cfg, ref_params, batch_r)
+    logits_t, _ = port_tf.forward_train(cfg, params, batch_t)
+    np.testing.assert_allclose(_f32(logits_t), _f32(logits_r), rtol=1e-5,
+                               atol=1e-5)
+    loss_r, _ = ref_model.loss_fn(cfg, ref_params, batch_r)
+    loss_t, _ = port_model.loss_fn(cfg, params, batch_t)
+    np.testing.assert_allclose(float(loss_t), float(loss_r), atol=1e-5,
+                               rtol=1e-5)

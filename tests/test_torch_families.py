@@ -31,9 +31,9 @@ tokens are drawn with numpy.  At float32, on the CPU:
   ``"pallas_interpret"`` at 1e-3 (``tests/test_kernels.py:189-215``);
 * one bfloat16 case per family at 2e-2 of the largest logit (bf16 rounds
   at other places in the two frameworks);
-* ``check_supported`` raises only for M-RoPE and encoder-only configs,
-  and the attention kernels' input checks take head dim 256 (ROADMAP
-  Queue C); the serving and training CLIs run each family.
+* ``check_supported`` takes every config of the zoo, and the attention
+  kernels' input checks take head dim 256 (ROADMAP Queue C); the serving
+  and training CLIs run each family.
 """
 
 import dataclasses
@@ -489,14 +489,12 @@ def test_kernel_input_checks_take_head_dim_256(dtype):
 
 @pytest.mark.parametrize("arch", sorted(ref_configs.REGISTRY)
                          + sorted(ref_configs.EXTRAS))
-def test_check_supported_raises_only_for_mrope_and_encoder(arch):
+def test_check_supported_takes_every_config(arch):
+    """Every config of the zoo, M-RoPE and encoder-only ones included
+    (ROADMAP 10.5, 10.6), at full size and reduced."""
     cfg = configs.get(arch)
-    if cfg.mrope_sections is not None or not cfg.embed_inputs:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_tf.check_supported(cfg)
-    else:
-        port_tf.check_supported(cfg)
-        port_tf.check_supported(cfg.reduced())
+    port_tf.check_supported(cfg)
+    port_tf.check_supported(cfg.reduced())
 
 
 @pytest.mark.parametrize("arch", FAMILIES)

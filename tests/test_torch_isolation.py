@@ -7,7 +7,9 @@
   imports ``repro_torch``, runs a tiny CPU grid (static and adaptive
   lanes, over traces of a generative predictor model), builds a tiny CPU
   trainer that takes a step, a full and a proactive save and a restore,
-  serves a tiny CPU ``generate`` through both attention routes, and runs
+  serves a tiny CPU ``generate`` through both attention routes (the
+  families and the M-RoPE VLM too), takes the encoder-only model's
+  forward and masked-prediction loss through the kernel route, and runs
   the two-level model, attribution and a traced replay, a small fleet
   sized from the model zoo, the availability scheduler and the adaptive
   scheduler; afterwards ``sys.modules`` holds neither.
@@ -155,12 +157,22 @@ for impl in ("ref", "pallas"):
     out = eng.generate({"tokens": torch.zeros((2, 8), dtype=torch.int32)}, 4)
     assert out.tokens.shape == (2, 4) and bool((out.logprobs <= 0).all())
 from repro_torch.configs import get
-for arch in ("qwen2-moe-a2.7b", "recurrentgemma-2b", "xlstm-125m"):
+from repro_torch.models.model import loss_fn, make_batch
+gen = torch.Generator()
+gen.manual_seed(0)
+for arch in ("qwen2-moe-a2.7b", "recurrentgemma-2b", "xlstm-125m",
+             "qwen2-vl-72b"):
     fcfg = dataclasses.replace(get(arch).reduced(), attn_impl="pallas")
     eng = ServingEngine(fcfg, init_params(fcfg, seed=0, device="cpu"),
                         cache_len=12)
-    out = eng.generate({"tokens": torch.zeros((2, 8), dtype=torch.int32)}, 4)
+    out = eng.generate(make_batch(fcfg, InputShape("t", 8, 2, "prefill"),
+                                  gen), 4)
     assert out.tokens.shape == (2, 4) and bool((out.logprobs <= 0).all())
+acfg = dataclasses.replace(get("hubert-xlarge").reduced(), head_dim=80,
+                           attn_impl="pallas")
+loss, _ = loss_fn(acfg, init_params(acfg, seed=0, device="cpu"),
+                  make_batch(acfg, InputShape("t", 8, 2, "train"), gen))
+assert bool(torch.isfinite(loss))
 from repro_torch.configs import REGISTRY, EXTRAS
 from repro_torch.core import (TwoLevelPlatform, optimal_two_level,
                               simulate_two_level, two_level_stream)

@@ -134,7 +134,7 @@ def test_forward_matches_reference_bf16(arch):
 
 def test_get_knows_the_ported_configs_only():
     """``get`` resolves every architecture of the JAX package (the model
-    code, not the registry, raises for the unported families) and still
+    code takes each) and still
     raises for a name neither package knows."""
     from repro.configs import EXTRAS
     for name in list(REGISTRY) + list(EXTRAS):
@@ -144,11 +144,16 @@ def test_get_knows_the_ported_configs_only():
         get("no-such-model")
 
 
-@pytest.mark.parametrize("arch, message", [
-    ("qwen2-vl-72b", "10.5"), ("hubert-xlarge", "10.6")])
-def test_unported_blocks_raise(arch, message):
-    with pytest.raises(NotImplementedError, match=message):
-        port_tf.init_params(REGISTRY[arch].reduced(), device="cpu")
+@pytest.mark.parametrize("arch, leaf", [
+    ("qwen2-vl-72b", "['embed']"), ("hubert-xlarge", "['norm_out']")])
+def test_mrope_and_encoder_blocks_init(arch, leaf):
+    """M-RoPE (ROADMAP 10.5) and encoder-only inputs (10.6) are ported:
+    their reduced configs initialise, the encoder without an ``embed``
+    leaf."""
+    cfg = REGISTRY[arch].reduced()
+    names = leaf_names(port_tf.init_params(cfg, device="cpu"))
+    assert leaf in names
+    assert ("['embed']" in names) == cfg.embed_inputs
 
 
 @pytest.mark.parametrize("variant", sorted(VARIANTS))

@@ -11,7 +11,9 @@ clipping mirror ``tests/test_substrates.py:27-72``.
 
 The data stream cannot replay ``jax.random``; it is held to the contract
 instead (``tests/test_substrates.py:73-100``, token modality):
-determinism and resume, and the learnable bigram structure.
+determinism and resume, and the learnable bigram structure; audio and VLM
+configs get ``make_batch``'s structure (``tests/test_torch_modalities.py``
+holds those batches in full).
 """
 
 import numpy as np
@@ -166,8 +168,15 @@ def test_data_has_learnable_structure():
     assert 0.2 < (toks == 0).mean() < 0.4
 
 
-def test_data_other_modalities_raise():
+def test_data_other_modalities_stream():
+    """Audio and VLM configs (ROADMAP 10.5, 10.6) get the stub batches of
+    ``make_batch``, not token streams."""
     from repro.configs import REGISTRY as REF
-    with pytest.raises(NotImplementedError, match="10.5"):
-        SyntheticLM(REF["qwen2-vl-72b"].reduced(),
-                    InputShape("t", 32, 2, "train"))
+    shape = InputShape("t", 32, 2, "train")
+    vlm = SyntheticLM(REF["qwen2-vl-72b"].reduced(), shape).batch_at(0)
+    assert set(vlm) == {"tokens", "vision_embeds", "vision_mask",
+                        "positions_thw"}
+    assert vlm["vision_mask"][:, :8].all() and not vlm["vision_mask"][:, 8:].any()
+    audio = SyntheticLM(REF["hubert-xlarge"].reduced(), shape).batch_at(0)
+    assert set(audio) == {"frames", "labels", "mask"}
+    assert audio["frames"].shape == (2, 32, 256)
