@@ -98,11 +98,12 @@ result):
                compared at its end), every row ``==``; (c) the same with
                ``engine="scalar"`` (the host oracle) and ``"batch"``
                (the kernel), every row ``==``; (d) the five experiment items
-               of ``suites/quick.yaml`` rebuilt from the specs stored in
-               ``suites/baselines/quick.json``: rows ``==`` the record's
+               of ``suites/quick_torch.json`` (the specs stored in
+               ``suites/baselines/quick.json``): rows ``==`` the record's
                (one row the JAX package itself no longer gives is printed,
-               ROADMAP Queue C R1) and every claim of ``quick.yaml:21-122``
-               holds; (e) lane_loop_kernel ``==`` the plain loop on
+               ROADMAP Queue C R1) and every claim of the file holds
+               (``ClaimSpec.evaluate``); (e) lane_loop_kernel ``==`` the
+               plain loop on
                window_sweep's widest-window chunk (at the engine's cap and
                at 1) and on the first 2,000 iterations of silent_sweep's
                harsh chunk (one launch and 8; its whole run, tens of
@@ -274,12 +275,42 @@ result):
                scaled_dot_product_attention(is_causal=False) and its
                operations bound; forward s on each route, frames/s, peak
                memory.
+16. store and examples - (a) ``python -m repro_torch.store run
+               suites/quick_torch.json --update-baseline`` in this process
+               on CUDA, the launch counts set to 0 just before and read
+               just after: rc 0, every claim, lane_loop launches > 0,
+               event_step 0; each record against the record of the same
+               (kind, name) in ``suites/baselines/quick.json``: rows
+               ``==`` on the bits (R1's row printed), payload ``==``,
+               identity ``==`` but engine_fingerprint, which must name
+               this torch and this card, and another record id.  (b) The
+               same run with ``--require-cached --gate`` on (a)'s bundle:
+               every item from the store, no launch, no divergence.  (c)
+               table2's first period x 1.5 in a copy of the bundle:
+               ``diff`` exits 1.  (d) ``python -m repro_torch.store list``
+               in a process: 6 records.  (e) The five example copies on
+               the card through their own entry points: quickstart (its
+               rows ``==`` engine="scalar", the host oracle),
+               predictor_study (its asserts; lane_loop launches),
+               trace_timeline (its Perfetto JSON read back), serving
+               (greedy deterministic, sampling differs),
+               fault_tolerant_training's phase 1 (the xLSTM-100M variant
+               at its width, ``FT_STEPS`` steps; loss decreases) and
+               phase 2 (the waste assert), the ckpt_delta launches
+               counted against the proactive saves and delta restores
+               they made, and every leaf they quantized or restored held
+               to the plain version on the bits; each part's seconds and
+               the xLSTM step time.  (f) ``ops.quantize_delta`` /
+               ``dequantize_delta`` with impl="pallas" ``==`` impl="ref"
+               on CUDA leaves.  The phase fails past its 180 s budget.
 
 The last two lines are the ``kernels`` JSON line (all five TPU kernels;
 the event_step entry reports lane_loop_kernel, which carries the advance
 on the main path, with its adaptive instantiation's check, time, launches
-and bound from phase 3a, the predictor study's launches and the
-experiment phase's launches and check; the attention entries add the
+and bound from phase 3a, the predictor study's launches, the
+experiment phase's launches and check, and phase 16's store-run and
+examples launches; the ckpt_delta entries add phase 16's example
+launches; the attention entries add the
 families' and modalities' launches per cell and the hd-256, per-family,
 qwen2-vl-72b and (flash) hubert-xlarge timings) and
 ``{"ok": true, "device": {...}}``.  Run from a checkout: it imports the
@@ -1445,82 +1476,11 @@ PAPER_DAYS = {
     ("w05", 16, "fair"): {"RFO": 120.2, "OptimalPrediction": 83.0},
     ("w05", 19, "fair"): {"RFO": 114.8, "OptimalPrediction": 60.8},
 }
-# The experiment items of suites/quick.yaml (lines 21-122) and their claims,
-# written out here (the card's machine has no YAML reader): (kind, metric,
-# fields).  recall_axis is the record of recall_precision's recall axis.
-QUICK_ITEMS = {
-    "table2": [
-        ("pinned", "period", dict(value=9096, rel_tol=0.002,
-                                  where=dict(n=65536, strategy="Young"))),
-        ("pinned", "period", dict(value=9142, rel_tol=0.002,
-                                  where=dict(n=65536, strategy="Daly"))),
-        ("pinned", "period", dict(value=8449, rel_tol=0.002,
-                                  where=dict(n=65536, strategy="RFO"))),
-        ("compare", "period", dict(
-            op=">", lhs=dict(n=524288, strategy="Young"),
-            rhs=dict(n=524288, strategy="ExactExponential"))),
-        ("compare", "period", dict(
-            op="<", lhs=dict(n=524288, strategy="RFO"),
-            rhs=dict(n=524288, strategy="ExactExponential")))],
-    "window_sweep": [
-        ("compare", "makespan", dict(
-            op="==", lhs=dict(predictor="good", window=0.0,
-                              strategy="WindowStart"),
-            rhs=dict(predictor="good", window=0.0,
-                     strategy="OptimalPrediction"))),
-        ("compare", "makespan", dict(
-            op="==", lhs=dict(predictor="fair", window=0.0,
-                              strategy="WindowStart"),
-            rhs=dict(predictor="fair", window=0.0,
-                     strategy="OptimalPrediction"))),
-        ("compare", "makespan", dict(
-            op=">", lhs=dict(predictor="good", window=18000.0,
-                             strategy="WindowStart"),
-            rhs=dict(predictor="good", window=0.0, strategy="WindowStart"))),
-        ("compare", "makespan", dict(
-            op="<", lhs=dict(predictor="good", window=18000.0,
-                             strategy="WindowProactive"),
-            rhs=dict(predictor="good", window=18000.0,
-                     strategy="WindowStart")))],
-    "exact_vs_first_order": [
-        ("compare", "waste", dict(
-            op="<", lhs=dict(scale="2^19/C1800", predictor="0.7/0.4",
-                             model_order="exact", strategy="Prediction"),
-            rhs=dict(scale="2^19/C1800", predictor="0.7/0.4",
-                     model_order="first", strategy="Prediction"))),
-        ("compare", "waste", dict(
-            op="<=", rel_factor=1.06,
-            lhs=dict(scale="2^16/C600", predictor="0.85/0.82",
-                     model_order="exact", strategy="NoPred"),
-            rhs=dict(scale="2^16/C600", predictor="0.85/0.82",
-                     model_order="first", strategy="NoPred")))],
-    "silent_sweep": [
-        ("pinned", "period", dict(value=5053.79, rel_tol=0.002,
-                                  where=dict(silent="harsh",
-                                             strategy="SilentVerify"))),
-        ("compare", "makespan", dict(
-            op="==", lhs=dict(silent="off", strategy="SilentVerify"),
-            rhs=dict(silent="off", strategy="RFO"))),
-        ("compare", "makespan", dict(
-            op="<", lhs=dict(silent="harsh", strategy="SilentVerify"),
-            rhs=dict(silent="harsh", strategy="RFO"))),
-        ("compare", "makespan", dict(
-            op="<", lhs=dict(silent="mild", strategy="SilentVerifyPred"),
-            rhs=dict(silent="mild", strategy="RFO"))),
-        ("compare", "waste", dict(
-            op=">", lhs=dict(silent="harsh", strategy="RFO"),
-            rhs=dict(silent="mild", strategy="RFO"))),
-        ("bound", "waste", dict(min=0.0, max=0.5,
-                                where=dict(silent="harsh",
-                                           strategy="SilentVerify")))],
-    "recall_axis": [
-        ("monotonic", "waste", dict(over="recall", direction="decreasing",
-                                    tol=0.01,
-                                    where=dict(strategy="OptimalPrediction"))),
-        ("bound", "waste", dict(min=0.0, max=1.0,
-                                where=dict(strategy="OptimalPrediction",
-                                           recall=0.9)))],
-}
+# The five experiment items of suites/quick.yaml with their claims, as the
+# port's suite file holds them (JSON: the card's machine has no YAML
+# reader).  Phase 6d (d) and phase 16 read it; recall_axis is the record of
+# recall_precision's recall axis.
+QUICK_TORCH = ROOT / "suites" / "quick_torch.json"
 # A row of the record that the JAX package itself no longer gives on this
 # numpy: the exact model's optimizer lands 7.5e-4 s away on the harshest
 # cell (tests/test_torch_baseline_rows.py holds the port == the JAX package
@@ -1701,47 +1661,25 @@ def _exec_table(rows: list) -> None:
         "exponential at 2^19 (good predictor)")
 
 
-def _claim(table, kind: str, metric: str, c: dict) -> tuple[bool, str]:
-    """One claim of suites/quick.yaml, as the JAX package's store checks it
-    (repro/store/suite.py:187-221)."""
-    import operator
-    ops = {"<": operator.lt, "<=": operator.le, ">": operator.gt,
-           ">=": operator.ge, "==": operator.eq}
-    if kind == "pinned":
-        got = float(table.value(metric, **c["where"]))
-        return (abs(got - c["value"]) <= c["rel_tol"] * abs(c["value"]),
-                f"{metric} {got!r} pinned {c['value']}")
-    if kind == "bound":
-        got = float(table.value(metric, **c["where"]))
-        return c["min"] <= got <= c["max"], f"{metric} {got!r}"
-    if kind == "compare":
-        a = float(table.value(metric, **c["lhs"]))
-        b = float(table.value(metric, **c["rhs"])) * c.get("rel_factor", 1.0)
-        return ops[c["op"]](a, b), f"{metric} {a!r} {c['op']} {b!r}"
-    pairs = sorted(((r[c["over"]], r[metric])
-                    for r in table.where(**c["where"]).rows),
-                   key=lambda kv: float(kv[0]))
-    vals = [float(v) for _, v in pairs]
-    ok = len(vals) >= 2 and all(b <= a + c["tol"]
-                                for a, b in zip(vals, vals[1:]))
-    return ok, f"{metric} {c['direction']} over {c['over']}: {vals}"
-
-
 def _quick_suite(record_cells: dict) -> dict:
-    """(d): the five experiment items of suites/quick.yaml rebuilt from the
-    specs stored in suites/baselines/quick.json, on CUDA: rows == the
-    record's rows, every claim holds.  (e)'s two cells run again alone with
-    their chunks recorded."""
+    """(d): the five experiment items of suites/quick_torch.json (the
+    specs stored in suites/baselines/quick.json) on CUDA: rows == the
+    record's rows, every claim holds (the port's ClaimSpec.evaluate).
+    (e)'s two cells run again alone with their chunks recorded."""
     import dataclasses as dc
 
     from repro_torch.experiments import ExperimentSpec, run_experiment
     from repro_torch.kernels.lane_loop import lane_loop
+    from repro_torch.store import ClaimSpec
     with open(ROOT / "suites" / "baselines" / "quick.json") as fh:
         records = {r["name"]: r for r in json.load(fh)["records"].values()}
+    with open(QUICK_TORCH) as fh:
+        items = json.load(fh)["items"]
     chunks = {}
-    for name, claims in QUICK_ITEMS.items():
+    for item in items:
+        name = item["label"]
         rec = records[name]
-        exp = ExperimentSpec.from_dict(rec["identity"]["spec"])
+        exp = ExperimentSpec.from_dict(item["spec"])
         launches = lane_loop.launches
         t0 = time.perf_counter()
         table = run_experiment(exp)
@@ -1759,9 +1697,9 @@ def _quick_suite(record_cells: dict) -> dict:
                 raise AssertionError(f"{name}: row {key} != the record: "
                                      f"{row} vs {want[key]}")
             drift.append(key)
-        results = [_claim(table, kind, metric, c)
-                   for kind, metric, c in claims]
-        failed = [d for ok, d in results if not ok]
+        results = [ClaimSpec.from_dict(c).evaluate(table, {})
+                   for c in item["claims"]]
+        failed = [r for r in results if not r["ok"]]
         if failed:
             raise AssertionError(f"{name}: claims fail: {failed}")
         log(f"[quick] {name}: {len(table.rows)} rows in {wall:.4f} s, "
@@ -1770,7 +1708,7 @@ def _quick_suite(record_cells: dict) -> dict:
             + (f" except {len(drift)} row(s) where the JAX package itself "
                f"no longer gives the record ({drift})" if drift else "")
             + f"; {len(results)} claims hold: "
-            + "; ".join(d for _, d in results))
+            + "; ".join(r["detail"] for r in results))
         if name in record_cells:
             match = record_cells[name]
             cell = next(c for cols, c in exp.cells()
@@ -3375,22 +3313,44 @@ def _time_attention(name: str, kernel, plain, library, bound: dict,
             "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
 
 
+# Host-side calls that put one event on the device: the runtime's and the
+# driver's kernel launches, and the asynchronous copies and sets.
+_DEVICE_WORK_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpyAsync",
+                      "cudaMemsetAsync")
+
+
+def _host_launches(prof) -> int:
+    """Device work the host asked for in a profile window: the count of
+    :data:`_DEVICE_WORK_CALLS` events, which the host side records whole
+    even where the device side loses events."""
+    from torch.autograd import DeviceType
+    return sum(evt.count for evt in prof.key_averages()
+               if evt.device_type == DeviceType.CPU
+               and evt.key.startswith(_DEVICE_WORK_CALLS))
+
+
 def _device_ms(fn, calls: int, runs: int = 3,
-               one_event: bool = False) -> float:
-    """Device time per call (profiler): the device time of everything
-    ``runs`` runs of ``fn`` launch, over their ``runs * calls`` calls, or,
-    with ``one_event`` (each call launches one kernel and nothing else),
-    over the kernel events the profile recorded: a profile that loses
-    some (qwen2-vl-72b's decode calls read below the kernel's bytes bound
-    that way, ``PERF.md`` §7) still gives the time of a call, and a
-    recorded count short of the calls is printed.  A
-    profile that recorded no device event (the tracer lost the window) is
-    taken again with three times the runs, up to three times, then
-    raises."""
+               one_event: bool = False) -> tuple[float | None, str]:
+    """Device time per call (profiler) and the profile's event counts.
+
+    The busy time of everything ``runs`` runs of ``fn`` put on the device,
+    over the ``runs * calls`` calls, where the profile recorded every event
+    the host asked for (:func:`_host_launches`).  Where it lost some
+    (qwen2-vl-72b's decode calls read below the kernel's bytes bound that
+    way, ``PERF.md`` §7): with ``one_event`` (each call launches one kernel
+    and nothing else) the mean of the recorded launches is still the time
+    of a call; a call of several kernels of unlike lengths has no such
+    mean, so the profile is taken again, with three and nine times the
+    runs, and after three short profiles the time is None (not measured).
+    The counts come back as "recorded R of W device events" and are
+    printed beside the times.  A profile that recorded no device event
+    (the tracer lost the window) is taken again the same way; three such
+    profiles raise."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    counts = None
     for runs in (runs, 3 * runs, 9 * runs):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -3399,14 +3359,20 @@ def _device_ms(fn, calls: int, runs: int = 3,
             torch.cuda.synchronize()
         rows = _device_rows(prof)
         busy_us = sum(r[0] for r in rows)
-        if busy_us > 0:
-            events = sum(r[2] for r in rows) if one_event else runs * calls
-            if events != runs * calls:
-                log(f"[timing] the profile recorded {events} of the "
-                    f"{runs * calls} kernel launches")
-            return busy_us / 1e3 / events
-    raise RuntimeError("the profiler recorded no device time in three "
-                       "tries")
+        if busy_us <= 0:
+            continue
+        recorded = sum(r[2] for r in rows)
+        wanted = runs * calls if one_event else _host_launches(prof)
+        counts = f"recorded {recorded} of {wanted} device events"
+        if wanted <= recorded:
+            return busy_us / 1e3 / (runs * calls), counts
+        if one_event:
+            return busy_us / 1e3 / recorded, \
+                counts + " (short: per recorded launch)"
+    if counts is None:
+        raise RuntimeError("the profiler recorded no device time in three "
+                           "tries")
+    return None, counts + " (short in three profiles: not measured)"
 
 
 def _time_decode(layers: list, what: str = "the last decode step") -> dict:
@@ -3456,14 +3422,25 @@ def _time_decode(layers: list, what: str = "the last decode step") -> dict:
         {"bound_ms": bound_ms, "bound_by": "bytes",
          "note": f"{nbytes} bytes at {HBM_BYTES_PER_S:.3g} B/s"}, 20, 3,
         per_call=per)
-    dev = {key: _device_ms(fn, per, one_event=key == "ms") for key, fn in
-           (("ms", kernel), ("plain_ms", plain), ("library_ms", library))}
+    # Where a route's profiles all came up short its device time is not
+    # measured, and the CUDA-event time above stays in the result.
+    dev, counts, said = {}, {}, []
+    for key, fn, what in (("ms", kernel, "kernel"), ("plain_ms", plain,
+                                                     "plain"),
+                          ("library_ms", library,
+                           "scaled_dot_product_attention")):
+        ms, counts[key] = _device_ms(fn, per, one_event=key == "ms")
+        if ms is None:
+            counts[key] += f"; kept: {out[key]:.5f} ms by CUDA events"
+            said.append(f"{what} not measured ({counts[key]})")
+        else:
+            dev[key] = ms
+            said.append(f"{what} {ms:.5f} ms ({counts[key]})")
     log(f"[timing] decode_attention, device time per call (profiler): "
-        f"kernel {dev['ms']:.5f} ms, plain {dev['plain_ms']:.5f} ms, "
-        f"scaled_dot_product_attention {dev['library_ms']:.5f} ms; kernel at "
-        f"{bound_ms / dev['ms']:.4f} of the bound")
+        + ", ".join(said) + f"; kernel at {bound_ms / dev['ms']:.4f} of "
+        f"the bound")
     da.decode_attention.launches = launches       # timing does not count
-    return {**out, **dev}
+    return {**out, **dev, "device_events": counts}
 
 
 def _time_flash(q, k, v, window: int = 0,
@@ -4338,6 +4315,429 @@ def phase_modalities(errs: dict) -> dict:
     return out
 
 
+# -- 16. the result store and the examples ------------------------------------
+
+STORE_BUDGET_S = 180.0      # the phase's time budget on the card
+# fault_tolerant_training's phase 1 (xLSTM-100M at its full width) takes
+# 0.92-1.99 s a train step on the card (H100 80GB HBM3, 700 W), so its
+# default 200 steps (302 s) do not fit the budget: its steps are cut, its
+# width is not.  Phase 2 keeps the example's 120.
+FT_STEPS = {"phase1": 60, "phase2": 120}
+RECORD_ID = re.compile(r"^r[0-9a-f]{20} ")
+
+
+def _store_cli(argv: list[str]) -> tuple[int, str]:
+    """``python -m repro_torch.store`` in this process: (exit code, what it
+    printed), the output echoed to the log."""
+    import contextlib
+    import io
+
+    from repro_torch.store.cli import main as store_main
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = store_main(argv)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log(f"[store]   {line}")
+    return rc, out
+
+
+def _hold_store_records(store_dir: str) -> None:
+    """(a): each experiment record of the store against the record of the
+    same (kind, name) in suites/baselines/quick.json: rows == on the bits
+    (R1's row printed, not held), payload ==, identity == but for the
+    engine fingerprint, which names this torch and this card."""
+    import torch
+    from repro_torch.store import ResultStore
+    with open(ROOT / "suites" / "baselines" / "quick.json") as fh:
+        base = {(r["kind"], r["name"]): r
+                for r in json.load(fh)["records"].values()}
+    tag = f"torch-{torch.__version__}-cuda-{torch.cuda.get_device_name(0)}|"
+    with open(QUICK_TORCH) as fh:
+        names = sorted(it["label"] for it in json.load(fh)["items"])
+    recs = ResultStore(store_dir).find(kind="experiment")
+    if sorted(r.name for r in recs) != names:
+        raise AssertionError(f"store records {[r.name for r in recs]}")
+    for rec in recs:
+        want = base[("experiment", rec.name)]
+        got = rec.to_dict()
+        drift = []
+        for i, (a, b) in enumerate(zip(_rows_bits(got["rows"]),
+                                       _rows_bits(want["rows"]))):
+            if a != b:
+                if (rec.name, _row_key(got["rows"][i])) not in RECORD_DRIFT:
+                    raise AssertionError(f"{rec.name}: row {i} {a} != the "
+                                         f"record's {b}")
+                drift.append((got["rows"][i], want["rows"][i]))
+        if len(got["rows"]) != len(want["rows"]):
+            raise AssertionError(f"{rec.name}: {len(got['rows'])} rows, the "
+                                 f"record {len(want['rows'])}")
+        if got["payload"] != want["payload"]:
+            raise AssertionError(f"{rec.name}: payload {got['payload']} != "
+                                 f"{want['payload']}")
+        mine, theirs = dict(got["identity"]), dict(want["identity"])
+        if mine.pop("engine_fingerprint") != tag \
+                or theirs.pop("engine_fingerprint") != "" or mine != theirs:
+            raise AssertionError(f"{rec.name}: identity {got['identity']} "
+                                 f"vs {want['identity']}")
+        if got["record_id"] == want["record_id"]:
+            raise AssertionError(f"{rec.name}: the port's record has the "
+                                 f"reference's id")
+        log(f"[store] (a) {rec.name}: {len(got['rows'])} rows == the "
+            f"baseline's"
+            + (f" but R1's row, printed: {drift}" if drift else "")
+            + f"; payload == {got['payload']}; identity == but "
+            f"engine_fingerprint {tag!r}; record {got['record_id']} (the "
+            f"baseline's {want['record_id']}); timings {got['timings']}")
+
+
+def _load_example(name: str):
+    """``examples/<name>.py`` as a module (``examples/`` is no package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"_example_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _examples_sim(workdir: str) -> dict:
+    """(e), the simulation examples: quickstart (rows == the host oracle),
+    predictor_study (its asserts; lane_loop launches), trace_timeline (its
+    Perfetto JSON written and read back).  Returns each part's seconds and
+    the lane_loop launches."""
+    from repro_torch.experiments import run_experiment
+    from repro_torch.kernels.event_step import event_step
+    from repro_torch.kernels.lane_loop import lane_loop
+    out = {}
+
+    qs = _load_example("quickstart_torch")
+    t0 = time.perf_counter()
+    got = qs.main()
+    out["quickstart_s"] = time.perf_counter() - t0
+    oracle = run_experiment(got["experiment"], engine="scalar").rows
+    if _rows_bits(got["table"].rows) != _rows_bits(oracle):
+        raise AssertionError("quickstart: rows on the card != the host "
+                             "oracle's")
+    launches = lane_loop.launches
+    log(f"[examples] quickstart: {out['quickstart_s']:.2f} s, "
+        f"{launches} lane_loop launches; its {len(oracle)} rows == "
+        f"engine='scalar' (the host oracle); trainer "
+        f"{got['stats'].n_steps} steps, {got['stats'].n_faults} faults, "
+        f"{got['stats'].n_proactive} proactive saves")
+
+    ps = _load_example("predictor_study_torch")
+    t0 = time.perf_counter()
+    got = ps.main()             # its asserts hold or it raises
+    out["predictor_study_s"] = time.perf_counter() - t0
+    if lane_loop.launches == launches:
+        raise AssertionError("predictor_study launched no lane_loop kernel")
+    log(f"[examples] predictor_study: {out['predictor_study_s']:.2f} s, "
+        f"{lane_loop.launches - launches} lane_loop launches; makespans "
+        f"(days) {[m / 86400 for m in got['adaptive']['makespans']]}; "
+        f"re-plans {got['adaptive']['batch'].n_replans.tolist()}")
+
+    tt = _load_example("trace_timeline_torch")
+    path = os.path.join(workdir, "trace_timeline.json")
+    t0 = time.perf_counter()
+    got = tt.main(path)
+    out["trace_timeline_s"] = time.perf_counter() - t0
+    with open(path) as fh:
+        n = check_perfetto(json.load(fh), [j.name for j in got["fleet"].jobs])
+    log(f"[examples] trace_timeline: {out['trace_timeline_s']:.2f} s, "
+        f"{os.path.getsize(path)} bytes of Perfetto JSON read back, {n} "
+        f"slices")
+    if event_step.launches:
+        raise AssertionError(f"the examples launched event_step "
+                             f"{event_step.launches} times")
+    out["lane_loop_launches"] = lane_loop.launches
+    return out
+
+
+def _hold_delta_save(mgr, state, info) -> int:
+    """A proactive save's stored (q, scales) == quantize_delta_ref on the
+    same CUDA leaves against the manager's base, on the bits.  Returns the
+    leaves held."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ckpt_delta as cd
+    from repro_torch.tree import flatten
+    if info.kind != "proactive":
+        return 0
+    leaves = [t.detach() for t in flatten(state)]
+    base = mgr._last_full_state
+    held = 0
+    with np.load(info.path, allow_pickle=False) as z:
+        for i, cur in enumerate(leaves):
+            if f"q_{i}" not in z:
+                continue
+            rq, rs = cd.quantize_delta_ref(cur, base[i], block=mgr.block)
+            q = torch.from_numpy(z[f"q_{i}"]).to(cur.device)
+            sc = torch.from_numpy(z[f"s_{i}"]).to(cur.device)
+            if not (torch.equal(q, rq) and _bits_equal(sc, rs)):
+                raise AssertionError(f"proactive save at step {info.step}: "
+                                     f"leaf {i} {tuple(cur.shape)} != "
+                                     f"quantize_delta_ref")
+            held += 1
+    return held
+
+
+def _hold_delta_restore(mgr, like, step: int, restored) -> int:
+    """A delta restore's leaves == dequantize_delta_ref of the stored
+    (q, scales) over the same base leaves on the card, on the bits.
+    Returns the leaves held."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ckpt_delta as cd
+    from repro_torch.tree import flatten
+    got = flatten(restored)
+    held = 0
+    with np.load(mgr._delta_path(step), allow_pickle=False) as z:
+        base = flatten(mgr._restore_full(like, int(z["__base__"])))
+        for i, b in enumerate(base):
+            if f"q_{i}" not in z:
+                continue
+            q = torch.from_numpy(z[f"q_{i}"]).to(b.device)
+            sc = torch.from_numpy(z[f"s_{i}"]).to(b.device)
+            want = cd.dequantize_delta_ref(q, sc, b, block=mgr.block)
+            if not _bits_equal(got[i], want.to(b.dtype)):
+                raise AssertionError(f"delta restore of step {step}: leaf "
+                                     f"{i} {tuple(b.shape)} != "
+                                     f"dequantize_delta_ref")
+            held += 1
+    return held
+
+
+def _examples_models() -> dict:
+    """(e), the model examples: serving (its determinism checks) and
+    fault_tolerant_training's phases 1 and 2 (the loss and waste asserts;
+    the ckpt_delta kernels launched where a proactive save and a delta
+    restore happened, every such save's and restore's leaves held to the
+    plain versions on the bits; the xLSTM-100M step time)."""
+    import torch
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.kernels import ckpt_delta as cd
+    from repro_torch.train import FaultTolerantTrainer
+    out = {}
+
+    sv = _load_example("serving_torch")
+    t0 = time.perf_counter()
+    got = sv.main()
+    out["serving_s"] = time.perf_counter() - t0
+    if not all(r["sampled_differs"] for r in got.values()):
+        raise AssertionError("serving: a sampled run == the greedy one")
+    log(f"[examples] serving: {out['serving_s']:.2f} s; greedy decoding "
+        f"deterministic and sampling differs for {list(got)}")
+    _free_cuda()
+
+    ft = _load_example("fault_tolerant_training_torch")
+    seen = {"proactive": 0, "delta_restores": 0, "step_s": [],
+            "held_q": 0, "held_dq": 0}
+    real = (CheckpointManager.save_proactive,
+            CheckpointManager._restore_delta, FaultTolerantTrainer._do_step)
+
+    def save_proactive(self, step, state):
+        seen["proactive"] += 1
+        info = real[0](self, step, state)
+        seen["held_q"] += _hold_delta_save(self, state, info)
+        return info
+
+    def restore_delta(self, like, step):
+        seen["delta_restores"] += 1
+        out = real[1](self, like, step)
+        seen["held_dq"] += _hold_delta_restore(self, like, step, out)
+        return out
+
+    def do_step(self, stats):
+        t0 = time.perf_counter()
+        m = real[2](self, stats)
+        torch.cuda.synchronize()
+        seen["step_s"].append(time.perf_counter() - t0)
+        return m
+
+    CheckpointManager.save_proactive = save_proactive
+    CheckpointManager._restore_delta = restore_delta
+    FaultTolerantTrainer._do_step = do_step
+    try:
+        for phase, run in (("phase1", ft.phase1), ("phase2", ft.phase2)):
+            steps = FT_STEPS[phase]
+            seen.update(proactive=0, delta_restores=0, step_s=[],
+                        held_q=0, held_dq=0)
+            cd.quantize_delta.launches = 0
+            cd.dequantize_delta.launches = 0
+            t0 = time.perf_counter()
+            got = run(steps)     # the loss / waste asserts hold or it raises
+            out[f"{phase}_s"] = time.perf_counter() - t0
+            q, dq = cd.quantize_delta.launches, cd.dequantize_delta.launches
+            out[f"{phase}_launches"] = {"quantize_delta": q,
+                                        "dequantize_delta": dq}
+            if (seen["proactive"] > 0) != (q > 0) \
+                    or (seen["delta_restores"] > 0) != (dq > 0) \
+                    or (seen["held_q"], seen["held_dq"]) != (q, dq):
+                raise AssertionError(
+                    f"fault_tolerant_training {phase}: "
+                    f"{seen['proactive']} proactive saves with {q} "
+                    f"quantize_delta launches ({seen['held_q']} leaves held "
+                    f"to plain), {seen['delta_restores']} delta restores "
+                    f"with {dq} dequantize_delta launches "
+                    f"({seen['held_dq']} held)")
+            steps_s = sorted(seen["step_s"])
+            med_ms = steps_s[len(steps_s) // 2] * 1e3
+            if phase == "phase1":
+                out["xlstm_step_ms"] = med_ms
+                stats = got["stats"]
+                what = (f"{got['cfg'].name} ({got['cfg'].param_count()} "
+                        f"parameters), loss {got['first_loss']:.4f} -> "
+                        f"{stats.final_loss:.4f}, {stats.n_faults} faults, "
+                        f"{stats.n_proactive} proactive saves")
+            else:
+                what = ", ".join(f"{k} waste {v.waste:.4f} ({v.n_faults} "
+                                 f"faults, {v.n_proactive} proactive)"
+                                 for k, v in got.items())
+            log(f"[examples] fault_tolerant_training {phase}: {steps} "
+                f"steps in {out[f'{phase}_s']:.2f} s; {what}; "
+                f"{len(steps_s)} train steps, median {med_ms:.3f} ms a step "
+                f"(min {steps_s[0] * 1e3:.3f}, max {steps_s[-1] * 1e3:.3f}); "
+                f"{seen['proactive']} proactive saves -> {q} quantize_delta "
+                f"launches, {seen['delta_restores']} delta restores -> {dq} "
+                f"dequantize_delta launches; every launch's leaf == the "
+                f"plain version on the bits (q, scales and restored leaves)")
+    finally:
+        (CheckpointManager.save_proactive, CheckpointManager._restore_delta,
+         FaultTolerantTrainer._do_step) = real
+    if not (out["phase1_launches"]["quantize_delta"]
+            + out["phase2_launches"]["quantize_delta"]):
+        raise AssertionError("fault_tolerant_training made no proactive "
+                             "save: the quantize_delta kernel never ran")
+    _free_cuda()
+    return out
+
+
+def _check_dispatchers() -> None:
+    """(f): ops.quantize_delta / dequantize_delta with impl="pallas" (the
+    kernels) == impl="ref" (the plain versions) on CUDA leaves; these
+    launches do not count."""
+    import torch
+    from repro_torch.kernels import ckpt_delta as cd
+    from repro_torch.kernels import ops
+    counts = cd.quantize_delta.launches, cd.dequantize_delta.launches
+    for shape, dtype in (((1000, 37), "float32"), ((4096, 16), "bfloat16")):
+        base = _randn(shape, dtype, 21)
+        cur = base + (0.01 * _randn(shape, "float32", 22)).to(base.dtype)
+        q, s = ops.quantize_delta(cur, base, impl="pallas")
+        rq, rs = ops.quantize_delta(cur, base, impl="ref")
+        out = ops.dequantize_delta(q, s, base, impl="pallas")
+        ref = ops.dequantize_delta(rq, rs, base, impl="ref")
+        if not (torch.equal(q, rq) and _bits_equal(s, rs)
+                and _bits_equal(out, ref)):
+            raise AssertionError(f"ops dispatchers at {shape} {dtype}: "
+                                 f"impl='pallas' != impl='ref'")
+    if (cd.quantize_delta.launches - counts[0],
+            cd.dequantize_delta.launches - counts[1]) != (2, 2):
+        raise AssertionError("ops dispatchers did not launch the kernels")
+    cd.quantize_delta.launches, cd.dequantize_delta.launches = counts
+    log("[store] (f) ops.quantize_delta / ops.dequantize_delta "
+        "impl='pallas' (the CUDA kernels) == impl='ref' on the bits at "
+        "(1000, 37) float32 and (4096, 16) bfloat16")
+
+
+def phase_store_examples() -> dict:
+    """Phase 16: the result store on the card, then the examples."""
+    import torch
+    from repro_torch.kernels.event_step import event_step
+    from repro_torch.kernels.lane_loop import lane_loop
+    t_start = time.perf_counter()
+    smi = _smi()
+    out = {}
+    store = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    try:
+        bundle = os.path.join(store, "bundle.json")
+        # (a) the main path of this phase: counts at 0 just before, read
+        # just after.
+        lane_loop.launches = 0
+        event_step.launches = 0
+        t0 = time.perf_counter()
+        rc, text = _store_cli(["--store", store, "run", str(QUICK_TORCH),
+                               "--update-baseline", bundle])
+        torch.cuda.synchronize()
+        out["run_s"] = time.perf_counter() - t0
+        out["launches"] = lane_loop.launches
+        if rc != 0 or "FAILED" in text or "0 from store, OK" not in text:
+            raise AssertionError(f"store run: rc {rc}")
+        if out["launches"] < 1 or event_step.launches != 0:
+            raise AssertionError(f"store run: {out['launches']} lane_loop, "
+                                 f"{event_step.launches} event_step "
+                                 f"launches")
+        log(f"[store] (a) run {QUICK_TORCH.name} on CUDA: rc 0, every "
+            f"claim holds, {out['launches']} lane_loop launches, 0 "
+            f"event_step launches, {out['run_s']:.2f} s")
+        _hold_store_records(store)
+
+        # (b) resume from the store and gate against (a)'s bundle.
+        lane_loop.launches = 0
+        t0 = time.perf_counter()
+        rc, text = _store_cli(["--store", store, "run", str(QUICK_TORCH),
+                               "--require-cached", "--gate", bundle])
+        out["resume_s"] = time.perf_counter() - t0
+        if rc != 0 or "5 items, 5 from store" not in text \
+                or "gate: no divergence" not in text or lane_loop.launches:
+            raise AssertionError(f"store resume: rc {rc}, "
+                                 f"{lane_loop.launches} launches")
+        log(f"[store] (b) resumed: rc 0, 5 of 5 items from the store, 0 "
+            f"lane_loop launches, the gate finds no divergence, "
+            f"{out['resume_s']:.2f} s")
+
+        # (c) an injected regression (.github/workflows/ci.yml:57-72).
+        with open(bundle) as fh:
+            bad = json.load(fh)
+        rec = next(r for r in bad["records"].values()
+                   if r["name"] == "table2")
+        rec["rows"][0]["period"] *= 1.5
+        bad_path = os.path.join(store, "bundle_regressed.json")
+        with open(bad_path, "w") as fh:
+            json.dump(bad, fh)
+        rc, text = _store_cli(["--store", store, "diff", bad_path])
+        if rc != 1 or "period" not in text:
+            raise AssertionError(f"diff on the regressed bundle: rc {rc}")
+        log("[store] (c) table2's first period x 1.5 in a copy of the "
+            "bundle: diff exits 1 and names it")
+
+        # (d) the CLI as a process.
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.store", "--store", store,
+             "list"], capture_output=True, text=True, timeout=120,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        listed = [ln for ln in proc.stdout.splitlines()
+                  if RECORD_ID.match(ln)]
+        if proc.returncode != 0 or len(listed) != 6:
+            raise AssertionError(f"store list: rc {proc.returncode}, "
+                                 f"{proc.stdout}{proc.stderr}")
+        log(f"[store] (d) python -m repro_torch.store list: rc 0, "
+            f"{len(listed)} records (5 items and the suite record)")
+        out["store_s"] = time.perf_counter() - t_start
+
+        # (e) the examples on the card, each through its own entry point.
+        lane_loop.launches = 0
+        event_step.launches = 0
+        out.update(_examples_sim(store))
+        out.update(_examples_models())
+        # (f) the dispatchers.
+        _check_dispatchers()
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_start
+    parts = ", ".join(f"{k} {v:.2f}" for k, v in out.items()
+                      if k.endswith("_s"))
+    log(f"[store] phase 16 on {smi}: {out['phase_s']:.1f} s (budget "
+        f"{STORE_BUDGET_S:.0f} s); seconds: {parts}; xLSTM-100M train step "
+        f"{out['xlstm_step_ms']:.3f} ms (median)")
+    if out["phase_s"] > STORE_BUDGET_S:
+        raise AssertionError(f"phase 16 took {out['phase_s']:.1f} s, past "
+                             f"its {STORE_BUDGET_S:.0f} s budget")
+    return out
+
+
 def main() -> int:
     if len(sys.argv) == 4 and sys.argv[1] == "--exec-rows-cpu":
         _cpu_exec_rows(sys.argv[2], int(sys.argv[3]))
@@ -4392,6 +4792,10 @@ def _main(t_start: float, device: dict, children: list) -> int:
     log(f"[done] families phase {time.perf_counter() - t_start:.1f} s")
     modalities = phase_modalities(errs)
     log(f"[done] modalities phase {time.perf_counter() - t_start:.1f} s")
+    _free_cuda()
+    store = phase_store_examples()
+    log(f"[done] store and examples phase "
+        f"{time.perf_counter() - t_start:.1f} s")
     finish_cpu_rows(children, experiments["cuda_rows"])
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     kernels = [{
@@ -4410,7 +4814,9 @@ def _main(t_start: float, device: dict, children: list) -> int:
         "adaptive_bound_ms": adaptive["bound_ms"],
         "predictor_study_launches": predictor["launches"],
         "experiments_launches": experiments["launches"],
-        "experiments_max_abs_err": experiments["max_abs_err"]}]
+        "experiments_max_abs_err": experiments["max_abs_err"],
+        "store_launches": store["launches"],
+        "examples_launches": store["lane_loop_launches"]}]
     for name, replaces in (("quantize_delta",
                             "src/repro/kernels/ckpt_delta.py:54"),
                            ("dequantize_delta",
@@ -4420,7 +4826,9 @@ def _main(t_start: float, device: dict, children: list) -> int:
             "source": "src/repro_torch/kernels/csrc/ckpt_delta.cu",
             "replaces": replaces, "launches": trainer["launches"][name],
             "max_abs_err": errs[name], **trainer["timing"][name],
-            "library_ms": None})
+            "library_ms": None,
+            "examples_launches": {p: store[f"{p}_launches"][name]
+                                  for p in ("phase1", "phase2")}})
     for name, replaces in (("flash_attention",
                             "src/repro/kernels/flash_attention.py:81"),
                            ("decode_attention",

@@ -30,8 +30,9 @@ from .multilevel import (TwoLevelPlatform, TwoLevelResult,
                          optimal_two_level, simulate_two_level,
                          two_level_stream, waste_two_level)
 from .prediction import (PredictedPlatform, Predictor, beta_lim,
-                         optimal_period_with_prediction, t_pred, waste1,
-                         waste2)
+                         optimal_period_with_prediction, t_pred,
+                         t_pred_asymptotic, waste1, waste2,
+                         waste_with_prediction)
 from .silent import SilentPlan, optimal_silent_plan, silent_strategy
 from .simulator import SimResult, average_makespan, simulate
 from .traces import (EventTrace, Exponential, UniformDist, Weibull,
@@ -51,7 +52,8 @@ __all__ = [
     "Platform", "Predictor", "PredictedPlatform", "EventTrace", "SimResult",
     "Exponential", "Weibull", "UniformDist",
     "platform_mtbf", "t_young", "t_daly", "t_rfo", "beta_lim",
-    "optimal_period_with_prediction", "t_pred", "waste1", "waste2",
+    "optimal_period_with_prediction", "t_pred", "t_pred_asymptotic",
+    "waste1", "waste2", "waste_with_prediction",
     "make_event_trace", "make_event_trace_bank", "simulate",
     "average_makespan",
     "SilentPlan", "optimal_silent_plan", "silent_strategy",

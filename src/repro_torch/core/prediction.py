@@ -13,7 +13,7 @@ Implements:
     ``optimal_period_with_prediction`` accept ``cadence="restart"``
     (paper, default) or ``"continue"`` (engine-faithful).
 
-The port's own copy of ``repro/core/prediction.py:47-349`` (the
+The port's own copy of ``repro/core/prediction.py:47-358`` (the
 first-order model and the simple policy's waste of §4.1), operation for
 operation, so planned periods and thresholds are bitwise the JAX
 package's.
@@ -35,11 +35,13 @@ __all__ = [
     "waste1",
     "waste2",
     "waste_simple_policy",
+    "optimal_q",
     "cadence_correction",
     "t_nopred",
     "t_pred",
     "optimal_period_with_prediction",
     "waste_with_prediction",
+    "t_pred_asymptotic",
 ]
 
 
@@ -142,6 +144,16 @@ def waste_simple_policy(t: float, q: float, pp: PredictedPlatform) -> float:
         - q * r * cp * cp / (p * t) * (1.0 - p / 2.0)
     )
     return wff + wfault - wff * wfault
+
+
+def optimal_q(t: float, pp: PredictedPlatform) -> int:
+    """Optimal fixed trust probability: 0 or 1 (waste is linear in q).
+
+    Compares the waste at q=0 and q=1 for the given period.
+    """
+    w0 = waste_simple_policy(t, 0.0, pp)
+    w1 = waste_simple_policy(t, 1.0, pp)
+    return 0 if w0 <= w1 else 1
 
 
 def _waste2_coeffs(pp: PredictedPlatform) -> tuple[float, float, float, float]:
@@ -331,3 +343,14 @@ def optimal_period_with_prediction(
     if w1 <= w2:
         return tn, w1, False
     return tp, w2, True
+
+
+def t_pred_asymptotic(pp: PredictedPlatform) -> float:
+    """Large-mu approximation of the optimal period: sqrt(2 mu C / (1 - r)).
+
+    (paper §4.3 closing remark — equivalent to RFO with mu -> mu/(1-r).)
+    """
+    r = pp.predictor.recall
+    if r >= 1.0:
+        return math.inf
+    return math.sqrt(2.0 * pp.platform.mu * pp.platform.c / (1.0 - r))

@@ -29,7 +29,7 @@ import torch
 from ..configs.base import InputShape, ModelConfig
 from ..models.model import MASK_PROB, param_dtype, vision_layout
 
-__all__ = ["DataConfig", "SyntheticLM"]
+__all__ = ["DataConfig", "SyntheticLM", "DataState"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,6 +38,13 @@ class DataConfig:
     zipf_a: float = 1.2          # unigram power-law exponent
     bigram_shift: int = 17       # next-token bias: x_{t+1} ~ x_t + shift
     bigram_prob: float = 0.65    # probability of following the bigram rule
+
+
+@dataclasses.dataclass
+class DataState:
+    """Pipeline cursor (what the checkpoint saves)."""
+
+    step: int = 0
 
 
 class SyntheticLM:

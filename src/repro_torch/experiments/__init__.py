@@ -28,7 +28,8 @@ from .runner import (BestPeriodSearch, EvalCache, ResultTable, best_means,
                      candidate_makespans, candidate_results,
                      clear_trace_bank,
                      default_cache_dir, evaluate_mean, evaluate_strategies,
-                     expand_candidates, run_experiment, trace_bank)
+                     expand_candidates, run_experiment, run_suite,
+                     SuiteItemResult, SuiteRunResult, trace_bank)
 from .spec import (MU_IND_SYNTH, SECONDS_PER_DAY, DistributionSpec,
                    ExperimentSpec, PredictorSpec, ScenarioSpec, StrategySpec,
                    SweepSpec)
@@ -69,4 +70,7 @@ __all__ = [
     "evaluate_strategies",
     "expand_candidates",
     "run_experiment",
+    "run_suite",
+    "SuiteItemResult",
+    "SuiteRunResult",
 ]

@@ -15,7 +15,10 @@ place of the numpy lanes:
     custom trust policies) run through the scalar oracle
     :func:`repro_torch.core.simulator.simulate` on the host, optionally in
     a ``spawn`` process pool (a parent that holds CUDA must not fork);
-  * a tidy :class:`ResultTable` (one row per sweep-cell x strategy).
+  * a tidy :class:`ResultTable` (one row per sweep-cell x strategy);
+  * :func:`run_suite`, the store-backed, resumable suite runner of
+    ``repro/experiments/runner.py:921-1181``, whose records land in
+    :class:`repro_torch.store.ResultStore`.
 
 ``evaluate_strategies`` takes plain strategies and
 :class:`BestPeriodSearch` entries alike, and runs every lane candidate of
@@ -44,6 +47,7 @@ import os
 import pickle
 import sys
 import tempfile
+import time
 from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 from typing import Any, Iterable, Iterator, Mapping, Sequence
@@ -77,6 +81,9 @@ __all__ = [
     "evaluate_strategies",
     "expand_candidates",
     "run_experiment",
+    "run_suite",
+    "SuiteItemResult",
+    "SuiteRunResult",
 ]
 
 # Environment knobs (the reference's names and meanings).
@@ -985,3 +992,257 @@ def run_experiment(
                   f"{len(traces)} traces, cache {cache.misses} sims "
                   f"/ {cache.hits} hits", flush=True)
     return ResultTable(rows)
+
+
+# ---------------------------------------------------------------------------
+# Suite execution (store-backed, resumable)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class SuiteItemResult:
+    """Outcome of one suite item: the stored record (or the error that
+    prevented one), whether the store satisfied it without executing, and
+    the evaluated claim results."""
+
+    name: str
+    kind: str
+    record_id: str
+    record: Any = None            # RunRecord | None (None on error)
+    cached: bool = False
+    claims: list = dataclasses.field(default_factory=list)
+    error: str | None = None
+    wall_s: float = 0.0
+
+    @property
+    def ok(self) -> bool:
+        return self.error is None \
+            and all(c.get("ok", False) for c in self.claims)
+
+
+@dataclasses.dataclass
+class SuiteRunResult:
+    """Outcome of :func:`run_suite`: the per-item results plus the
+    aggregate suite record written to the store."""
+
+    suite: Any                    # SuiteSpec
+    record: Any                   # suite-kind RunRecord
+    items: list = dataclasses.field(default_factory=list)
+
+    @property
+    def ok(self) -> bool:
+        return all(it.ok for it in self.items)
+
+    @property
+    def record_id(self) -> str:
+        return self.record.record_id
+
+    @property
+    def n_cached(self) -> int:
+        return sum(it.cached for it in self.items)
+
+    def failures(self) -> list[str]:
+        out = []
+        for it in self.items:
+            if it.error is not None:
+                out.append(f"{it.name}: ERROR {it.error}")
+            for c in it.claims:
+                if not c.get("ok", False):
+                    out.append(f"{it.name}: CLAIM FAILED {c['claim']} "
+                               f"({c.get('detail', '')})")
+        return out
+
+    def summary(self) -> str:
+        lines = [f"suite {self.suite.name}: {len(self.items)} items, "
+                 f"{self.n_cached} from store, "
+                 f"{'OK' if self.ok else 'FAILED'} "
+                 f"[{self.record_id}]"]
+        for it in self.items:
+            n_claims = len(it.claims)
+            n_ok = sum(c.get("ok", False) for c in it.claims)
+            tag = "store" if it.cached else f"{it.wall_s:.1f}s"
+            state = "error" if it.error else \
+                ("ok" if it.ok else f"{n_claims - n_ok} claim(s) failed")
+            lines.append(f"  {it.kind:10s} {it.name:24s} {tag:>7s}  "
+                         f"claims {n_ok}/{n_claims}  {state}")
+        lines += [f"  ! {f}" for f in self.failures()]
+        return "\n".join(lines)
+
+
+def _suite_item_identity(item: Any, device: str | torch.device | None
+                         ) -> tuple[dict, Any]:
+    """(identity dict, built ExperimentSpec | None) of one suite item.
+
+    The reference's identity (the full canonical spec or the benchmark
+    name + quick flag, the execution context and the runner semantics
+    version) with the port's engine fingerprint on ``device``
+    (:func:`_engine_fingerprint`), so a port record never aliases a
+    reference record and a CPU record never resumes a CUDA run.
+    """
+    base = {"eval_version": _EVAL_CACHE_VERSION,
+            "engine_fingerprint": _engine_fingerprint(device)}
+    if item.kind == "benchmark":
+        return dict(base, benchmark=item.benchmark, quick=item.quick), None
+    from .registry import build_experiment
+    if item.spec is not None:
+        exp = ExperimentSpec.from_dict(item.spec)
+    else:
+        exp = build_experiment(item.experiment, quick=item.quick,
+                               **item.args)
+    if item.overrides:
+        exp = exp.with_overrides(item.overrides)
+    identity = dict(base, spec=exp.to_dict(), n_traces=item.n_traces,
+                    seed=item.seed, batched_traces=item.batched_traces)
+    return identity, exp
+
+
+# Counters of the lane engine: chunk, iteration, re-plan and kernel-launch
+# counts.  They depend on the device (the launches are 0 on the CPU, the
+# chunking follows the device) and the reference's numpy engines count
+# none of them, so they ride in ``timings`` and the payload keeps what the
+# reference's payload holds.
+_ENGINE_COUNTER_PREFIXES = ("torch.", "kernels.", "engine.")
+
+
+def _metrics_outputs(reg: Any) -> tuple[dict, dict]:
+    """Split a registry snapshot into (payload counters, timing extras).
+
+    Deterministic counters go into the record payload (exact-diffed);
+    anything resume-, device- or environment-dependent — the cache
+    hit/miss split, the lane engine's counters and all timers/gauges —
+    rides in ``timings``, which diffs exclude as provenance.
+    """
+    cnt = dict(reg.counters)
+    extras = dict(reg.flat_timings())
+    hits = cnt.pop("runner.cache_hits", 0)
+    misses = cnt.pop("runner.cache_misses", 0)
+    if hits or misses:
+        cnt["runner.cache_lookups"] = hits + misses
+        extras["runner.cache_hits"] = hits
+        extras["runner.cache_misses"] = misses
+    for name in [n for n in cnt if n.startswith(_ENGINE_COUNTER_PREFIXES)]:
+        extras[name] = cnt.pop(name)
+    return cnt, extras
+
+
+def _run_suite_item(item: Any, store: Any, *, resume: bool,
+                    engine: str | None, workers: int | None,
+                    verbose: bool, device: str | torch.device | None
+                    ) -> SuiteItemResult:
+    from ..obs.metrics import MetricsRegistry, set_registry
+    from ..store import RunRecord, evaluate_claims
+
+    eng = _resolve_engine(item.engine or engine)
+    try:
+        identity, exp = _suite_item_identity(item, device)
+    except (KeyError, ValueError, TypeError) as e:
+        # Unknown experiment / malformed spec or overrides: no identity,
+        # so nothing to probe or store — report the item as failed.
+        return SuiteItemResult(name=item.name, kind=item.kind, record_id="",
+                               error=f"{type(e).__name__}: {e}")
+    rid = RunRecord.id_for(item.kind, item.name, identity)
+    res = SuiteItemResult(name=item.name, kind=item.kind, record_id=rid)
+    if item.kind == "benchmark":
+        # The reference runs these through benchmarks/run.py, which drives
+        # the JAX package; the port does not run it (ROADMAP A5).
+        res.error = (f"KeyError: benchmark {item.benchmark!r}: benchmark "
+                     f"items run the JAX package's benchmarks/ scripts, "
+                     f"which the port does not run (ROADMAP A5)")
+        return res
+
+    rec = store.get(rid) if resume else None
+    if rec is not None:
+        res.record, res.cached = rec, True
+    else:
+        reg = MetricsRegistry()
+        prev_reg = set_registry(reg)
+        t0 = time.time()
+        try:
+            table = run_experiment(
+                exp, n_traces=item.n_traces, seed=item.seed,
+                workers=workers, verbose=verbose, engine=eng,
+                batched_traces=item.batched_traces or None, device=device)
+            counters, extras = _metrics_outputs(reg)
+            rec = RunRecord.create(item.kind, item.name, identity,
+                                   rows=table.rows,
+                                   payload={"metrics": counters}
+                                   if counters else {},
+                                   timings={"wall_s": time.time() - t0,
+                                            **extras})
+        except (AssertionError, KeyError, ValueError, TypeError) as e:
+            # A failed run is reported, never stored: the identity must
+            # only ever resolve to a completed result.
+            res.error = f"{type(e).__name__}: {e}"
+            res.wall_s = time.time() - t0
+            return res
+        finally:
+            set_registry(prev_reg)
+        res.record, res.wall_s = rec, time.time() - t0
+
+    # Claims are (re-)evaluated on every run, including store-resumed ones,
+    # so tightening a suite file re-gates cached results without simulating.
+    table = ResultTable(res.record.rows) if res.record.rows else None
+    res.claims = evaluate_claims(item, table, res.record.payload)
+    res.record = res.record.with_claims(res.claims)
+    store.put(res.record)
+    return res
+
+
+def run_suite(
+    suite: Any,
+    *,
+    store: Any = None,
+    resume: bool = True,
+    engine: str | None = None,
+    workers: int | None = None,
+    verbose: bool = False,
+    device: str | torch.device | None = None,
+) -> SuiteRunResult:
+    """Run a scenario suite through the result store (resumably).
+
+    ``suite`` is a :class:`repro_torch.store.SuiteSpec` or a path to a
+    suite file.  Per item the store is probed with the item's identity
+    hash first — a hit (``resume=True``, the default) skips execution
+    entirely and only re-evaluates the item's claims, so a second
+    invocation of an unchanged suite simulates nothing.  Experiment items
+    run through :func:`run_experiment` on ``device`` (``None``: CUDA);
+    ``benchmark:`` items are reported as errors (the port does not run
+    the reference's benchmark scripts) and never stored.  Results land in
+    ``store`` (default :func:`repro_torch.store.default_store_dir`) as
+    immutable :class:`~repro_torch.store.RunRecord`\\ s plus one aggregate
+    suite record whose identity covers every member id.
+    """
+    from ..store import ResultStore, RunRecord, SuiteSpec
+
+    resolve_device(device)
+    if not isinstance(suite, SuiteSpec):
+        suite = SuiteSpec.from_file(suite)
+    store = store if store is not None else ResultStore()
+    suite.ensure_registered()
+
+    items: list[SuiteItemResult] = []
+    for item in suite.items:
+        if verbose:
+            print(f"[suite {suite.name}] {item.kind} {item.name} ...",
+                  flush=True)
+        res = _run_suite_item(item, store, resume=resume, engine=engine,
+                              workers=workers, verbose=verbose,
+                              device=device)
+        if verbose:
+            src = "store" if res.cached else f"ran in {res.wall_s:.1f}s"
+            print(f"[suite {suite.name}] {item.name}: {src}, "
+                  f"{'ok' if res.ok else 'FAILED'}", flush=True)
+        items.append(res)
+
+    identity = {"suite": suite.name,
+                "member_ids": [it.record_id for it in items],
+                "eval_version": _EVAL_CACHE_VERSION}
+    suite_rec = RunRecord.create(
+        "suite", suite.name, identity,
+        payload={"items": [{
+            "name": it.name, "kind": it.kind, "record_id": it.record_id,
+            "cached": it.cached, "ok": it.ok, "error": it.error,
+            "claims": it.claims,
+        } for it in items]},
+        timings={"wall_s": sum(it.wall_s for it in items)})
+    store.put(suite_rec)
+    return SuiteRunResult(suite=suite, record=suite_rec, items=items)

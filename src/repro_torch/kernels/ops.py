@@ -1,6 +1,6 @@
-"""The model's attention, dispatched by ``cfg.attn_impl`` in one place.
+"""The model's attention and the checkpoint delta, dispatched by ``impl``.
 
-The port of ``repro/kernels/ops.py:24-41`` and of the model's
+The port of ``repro/kernels/ops.py:24-55`` and of the model's
 ``attn_impl`` branches (``repro/models/transformer.py:195-199``,
 ``:336-341``).  ``impl``:
 
@@ -12,6 +12,11 @@ The port of ``repro/kernels/ops.py:24-41`` and of the model's
   launch the hand-written CUDA kernels for CUDA tensors and take their
   plain versions for CPU tensors.  The port has no interpreter; both names
   are kept so that a config's value means the same in both packages.
+
+:func:`quantize_delta` / :func:`dequantize_delta` dispatch the same way:
+``"ref"`` takes the plain versions, the two kernel names take the
+``ckpt_delta`` wrappers, which launch ``csrc/ckpt_delta.cu`` for CUDA
+tensors.
 """
 
 from __future__ import annotations
@@ -19,10 +24,12 @@ from __future__ import annotations
 import torch
 
 from ..models import layers
+from . import ckpt_delta as _cd
 from . import decode_attention as _da
 from . import flash_attention as _fa
 
-__all__ = ["IMPLS", "check_impl", "decode_attention", "flash_attention"]
+__all__ = ["IMPLS", "check_impl", "decode_attention", "dequantize_delta",
+           "flash_attention", "quantize_delta"]
 
 IMPLS = ("ref", "pallas", "pallas_interpret")
 
@@ -55,3 +62,22 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     check_impl(impl)
     fn = layers.decode_attention if impl == "ref" else _da.decode_attention
     return fn(q, k_cache, v_cache, length, window=window)
+
+
+def quantize_delta(cur: torch.Tensor, base: torch.Tensor, *,
+                   block: int = _cd.BLOCK, impl: str = "ref"
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Int8 delta of ``cur`` against ``base``: (q (n_blocks, block) int8,
+    scales (n_blocks,) float32)."""
+    check_impl(impl)
+    fn = _cd.quantize_delta_ref if impl == "ref" else _cd.quantize_delta
+    return fn(cur, base, block=block)
+
+
+def dequantize_delta(q: torch.Tensor, scales: torch.Tensor,
+                     base: torch.Tensor, *, block: int = _cd.BLOCK,
+                     impl: str = "ref") -> torch.Tensor:
+    """``base + q * scale``, cast to ``base.dtype``."""
+    check_impl(impl)
+    fn = _cd.dequantize_delta_ref if impl == "ref" else _cd.dequantize_delta
+    return fn(q, scales, base, block=block)

@@ -1,6 +1,7 @@
 """Public model API: the training losses, batches and the serving modes.
 
-The port of ``repro/models/model.py:33-84`` and ``:129-156``: for decoder
+The port of ``repro/models/model.py:33-84``, ``:129-156`` and
+``:159-165`` (:func:`state_bytes`): for decoder
 LMs, next-token cross entropy; for encoder-only (audio) models, the
 masked-prediction cross entropy over the codebook at the ``mask``
 positions (HuBERT-style), over at least one position.  Both are float32, a
@@ -19,15 +20,19 @@ packages give both the same numpy inputs instead.
 
 from __future__ import annotations
 
+from typing import Any
+
 import torch
 
 from ..configs.base import InputShape, ModelConfig
+from ..tree import flatten
 from .transformer import (decode_step, forward_train, init_cache,
                           init_params, param_dtype, prefill)
 
 __all__ = ["MASK_PROB", "VISION_FRACTION", "cache_len_for", "decode_step",
            "forward_train", "init_cache", "init_params", "loss_fn",
-           "make_batch", "param_dtype", "prefill", "vision_layout"]
+           "make_batch", "param_dtype", "prefill", "state_bytes",
+           "vision_layout"]
 
 # The vision stub's share of the sequence that is image patches, and the
 # audio batches' masked-prediction rate (repro/models/model.py:30, :141).
@@ -131,3 +136,14 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict
         loss = _masked_loss(cfg, logits, batch["labels"], batch["mask"])
     total = loss + cfg.router_aux_coef * moe_aux
     return total, {"loss": loss, "moe_aux": moe_aux}
+
+
+def state_bytes(params: Any, opt_state: Any = None) -> int:
+    """Total bytes of a (params, optimizer) state tree (checkpoint
+    payload): each tensor leaf's ``numel * element_size``."""
+    total = 0
+    for leaf in flatten(params) + (
+            flatten(opt_state) if opt_state is not None else []):
+        if leaf is not None:      # jax.tree.leaves skips None
+            total += leaf.numel() * leaf.element_size()
+    return total

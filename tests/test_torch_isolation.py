@@ -1,8 +1,8 @@
 """The port stands alone: no jax, nothing of ``repro``, no CPU fallback.
 
-* An AST scan of every file under ``src/repro_torch/`` and of
-  ``chip_smoke.py`` finds no import of ``jax`` and none of ``repro`` /
-  ``repro.*``.
+* An AST scan of every file under ``src/repro_torch/``, of the example
+  copies ``examples/*_torch.py`` and of ``chip_smoke.py`` finds no import
+  of ``jax``, none of ``repro`` / ``repro.*`` and none of ``benchmarks``.
 * A subprocess in which ``jax`` and ``repro`` cannot be imported at all
   imports ``repro_torch``, runs a tiny CPU grid (static and adaptive
   lanes, over traces of a generative predictor model), builds a tiny CPU
@@ -12,7 +12,9 @@
   forward and masked-prediction loss through the kernel route, and runs
   the two-level model, attribution and a traced replay, a small fleet
   sized from the model zoo, the availability scheduler and the adaptive
-  scheduler; afterwards ``sys.modules`` holds neither.
+  scheduler, and a tiny inline suite through ``run_suite`` and the result
+  store (its ``register`` naming ``benchmarks.run``, which is skipped);
+  afterwards ``sys.modules`` holds neither, nor ``benchmarks``.
 * Without CUDA, an entry point called without ``device=`` raises instead
   of running on the CPU.
 * The constants and configs the port re-declares equal the reference's
@@ -34,6 +36,7 @@ torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
+    + sorted((ROOT / "examples").glob("*_torch.py")) \
     + [ROOT / "chip_smoke.py"]
 
 
@@ -50,7 +53,7 @@ def _imported_modules(path: Path) -> list[str]:
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "repro", "benchmarks")
 
 
 def test_port_files_found():
@@ -67,10 +70,15 @@ def test_port_files_found():
             "internlm2_20b.py", "hubert_xlarge.py", "qwen2_moe_a27b.py",
             "qwen2_vl_72b.py", "qwen3_moe_235b_a22b.py",
             "recurrentgemma_2b.py", "xlstm_125m.py", "moe.py", "rglru.py",
-            "xlstm.py"} <= names
+            "xlstm.py", "record.py", "store.py", "suite.py", "cli.py",
+            "__main__.py", "quickstart_torch.py", "predictor_study_torch.py",
+            "trace_timeline_torch.py", "serving_torch.py",
+            "fault_tolerant_training_torch.py"} <= names
     port = ROOT / "src" / "repro_torch"
     assert {"fleet/__init__.py", "fleet/sim.py", "ft/estimator.py",
-            "obs/trace.py", "core/multilevel.py"} \
+            "obs/trace.py", "core/multilevel.py", "store/__init__.py",
+            "store/__main__.py", "store/cli.py", "store/record.py",
+            "store/store.py", "store/suite.py"} \
         <= {str(p.relative_to(port)) for p in PORT_FILES
             if port in p.parents}
 
@@ -89,7 +97,7 @@ import sys
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro", "benchmarks"):
             raise ImportError(f"{name} is blocked in this process")
         return None
 
@@ -209,8 +217,26 @@ assert CheckpointScheduler(plat, 1, objective="availability").period > 0
 ada = AdaptiveScheduler(plat, 1, c=30.0, cp=10.0)
 ada.estimator.observe_fault(100.0)
 ada.maybe_replan()
+from repro_torch.experiments import run_suite
+from repro_torch.store import ResultStore, SuiteSpec
+from repro_torch.store.cli import main as store_main
+
+tiny = SuiteSpec.from_dict({
+    "suite": "tiny", "register": ["benchmarks.run"],
+    "items": [{"label": "tiny", "spec": {
+        "name": "tiny", "scenario": sc.replace(n_traces=2).to_dict(),
+        "strategies": [{"name": "rfo"}]},
+        "claims": [{"kind": "bound", "metric": "waste", "min": 0.0,
+                    "max": 1.0, "where": {"strategy": "RFO"}}]}]})
+with tempfile.TemporaryDirectory() as d:
+    first = run_suite(tiny, store=ResultStore(d), device="cpu")
+    assert first.ok and not first.items[0].cached, first.summary()
+    again = run_suite(tiny, store=ResultStore(d), device="cpu")
+    assert again.ok and again.items[0].cached
+    assert store_main(["--store", d, "list"]) == 0
 leaked = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+                if m.split(".")[0] in ("jax", "jaxlib", "repro",
+                                       "benchmarks"))
 assert not leaked, leaked
 print("ISOLATED-OK")
 """
@@ -240,9 +266,15 @@ def _entry_points():
     from repro_torch.models.convert import params_from_numpy
     from repro_torch.launch.serve import main as serve_main
     from repro_torch.models.model import init_cache, init_params
+    from repro_torch.experiments import run_suite
+    from repro_torch.store import ResultStore, SuiteSpec
+    from repro_torch.store.cli import main as store_main
     from repro_torch.train import FaultTolerantTrainer
 
     plat = Platform(mu=2500.0, c=60.0, d=10.0, r=30.0)
+    suite = {"suite": "s", "register": [], "items": [{"spec": {
+        "name": "x", "scenario": {"n": 4096, "n_traces": 1},
+        "strategies": [{"name": "rfo"}]}}]}
     trace = EventTrace(np.array([500.0]), np.zeros(1, dtype=np.int8), 1e5)
     return {
         "simulate_batch": lambda: simulate_batch([trace], plat, 1000.0,
@@ -270,6 +302,11 @@ def _entry_points():
         "init_cache": lambda: init_cache(get("tinyllama-1.1b").reduced(),
                                          1, 8),
         "serve_cli": lambda: serve_main(["--new-tokens", "1"]),
+        "run_suite": lambda: run_suite(SuiteSpec.from_dict(suite),
+                                       store=ResultStore(tempfile.mkdtemp())),
+        "store_cli_run": lambda: store_main(
+            ["--store", tempfile.mkdtemp(), "run",
+             str(ROOT / "suites" / "quick_torch.json")]),
     }
 
 
@@ -278,7 +315,8 @@ def _entry_points():
                                    "run_lanes_torch",
                                    "FaultTolerantTrainer", "init_params",
                                    "params_from_numpy", "init_cache",
-                                   "serve_cli"])
+                                   "serve_cli", "run_suite",
+                                   "store_cli_run"])
 def test_no_silent_cpu_fallback(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
