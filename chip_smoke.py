@@ -219,20 +219,21 @@ result):
                64, and 80 as at full size): forward_train logits and
                loss_fn's loss through the flash kernel on CUDA against its
                plain version on the CPU, within 1e-4.
-14. families  - qwen2-moe-a2.7b (24 layers, d 2048, 16/16 heads of 128, 60
-               routed experts stored as 64, top 4, 4 shared, expert d_ff
-               1408, vocab 151,936), recurrentgemma-2b (26 layers: rec,
-               rec, local x 8 and rec, rec; d 2560, 10 heads of 256 over one
-               kv head, window 2,048, vocab 256,000) and xlstm-125m (12
-               layers of mLSTM, sLSTM; d 768, 4 heads, tied head) at their
-               published widths, served as phase 11's cell (bf16, random
+14. families  - qwen2-moe-a2.7b (d 2048, 16/16 heads of 128, 60 routed
+               experts stored as 64, top 4, 4 shared, expert d_ff 1408,
+               vocab 151,936; 8 of its 24 layers), recurrentgemma-2b (26
+               layers: rec, rec, local x 8 and rec, rec; d 2560, 10 heads
+               of 256 over one kv head, window 2,048, vocab 256,000) and
+               xlstm-125m (mLSTM, sLSTM; d 768, 4 heads, tied head; 4 of
+               its 12 layers) at their published widths, two depths cut
+               for the script's time (``FAMILY_LAYERS``), served as phase 11's cell (bf16, random
                weights from seed 0, attn_impl="pallas", batch 8, prompt
                2,048, 128 new tokens, greedy, cache_len 2,176): prefill s
                (and where a synchronised prefill spends it by block
                function), decode ms a step beside the step's bytes bound,
                tokens/s with and without the prefill, peak memory, the
-               launch counts read from 0 before the generate (decode 24 x
-               128, 8 x 128, 0), a profiled window; a checked generate:
+               launch counts read from 0 before the generate (decode 8 x
+               128, 8 x 32, 0), a profiled window; a checked generate:
                the decode kernel held to plain on every attention layer's
                inputs at the first and last step (one bf16 ulp; 2e-6 cast
                to float32), the ref route teacher-forced over the tokens
@@ -303,6 +304,28 @@ result):
                the xLSTM step time.  (f) ``ops.quantize_delta`` /
                ``dequantize_delta`` with impl="pallas" ``==`` impl="ref"
                on CUDA leaves.  The phase fails past its 180 s budget.
+
+17. launch    - (a) the sharded step builders of ``launch/steps.py`` at
+               tinyllama-1.1b's published widths on the card's 1x1
+               ``DeviceMesh`` (a world-size-1 nccl group), the state
+               through ``state_specs`` (every placement Replicate), the
+               steps running on the local tensors: ``make_train_step``
+               with one microbatch ``==`` the trainer's ``_train_step`` on
+               the bits (params, AdamW state, metrics; seq 128, batch 8);
+               ``make_prefill_step`` ``==`` ``prefill`` (8 x 512 prompts);
+               ``make_serve_step`` with attn_impl="pallas": 16 greedy
+               tokens ``==`` ``ServingEngine``'s, decode_attention
+               launches read from 0 before the loop (22 x 16); reduced
+               llama3.2-1b with two microbatches, CUDA against the CPU
+               (the step count ``==``, the loss within 1e-3).  (b) The dry
+               run (``python -m repro_torch.launch.dryrun``, two processes
+               started with the phase, 6 and 1 workers) on the fake
+               production meshes: every arch at train_4k and decode_32k on
+               16x16, the dense decoders at decode_32k on 2x16x16; every
+               dense decoder's row ok,
+               every error row naming its op; each row's bytes a device
+               against 80 GB, the three roofline terms and the dominant
+               one.  The phase fails past its 90 s budget.
 
 The last two lines are the ``kernels`` JSON line (all five TPU kernels;
 the event_step entry reports lane_loop_kernel, which carries the advance
@@ -3958,6 +3981,11 @@ FAMILY_ARCHS = ("qwen2-moe-a2.7b", "recurrentgemma-2b", "xlstm-125m")
 # e^0.42 a token and overflows float32 within a few hundred tokens; the
 # port copies it.  64 + 32 tokens keep the growth under e^41.
 FAMILY_SHAPES = {"recurrentgemma-2b": (64, 32)}
+# The depth of the two costly families, cut (widths kept) so that the
+# script with phase 17 stays within its time: 24 -> 8 and 12 -> 4 layers.
+# recurrentgemma-2b keeps its 26: its cell is short at 64 + 32 tokens, and
+# at 8 layers its two attention layers' timing windows came up empty.
+FAMILY_LAYERS = {"qwen2-moe-a2.7b": 8, "xlstm-125m": 4}
 
 
 def _step_bytes(cfg, params, length: int) -> tuple[int, int]:
@@ -4171,9 +4199,9 @@ def phase_families(errs: dict) -> dict:
     out = {}
     for arch in FAMILY_ARCHS:
         t0 = time.perf_counter()
-        out[arch] = _family_cell(arch, errs)
+        out[arch] = _family_cell(arch, errs, FAMILY_LAYERS.get(arch))
         t1 = time.perf_counter()
-        _family_cell_f32(arch, errs)
+        _family_cell_f32(arch, errs, FAMILY_LAYERS.get(arch))
         c = out[arch]
         log(f"[{arch}] on {_smi()}: prefill {c['prefill_s']:.4f} s, decode "
             f"{c['step_ms']:.4f} ms a step (bound {c['step_bound_ms']:.4f} "
@@ -4738,6 +4766,285 @@ def phase_store_examples() -> dict:
     return out
 
 
+# -- the launch phase: the sharded step builders and the dry run --------------
+
+LAUNCH_BUDGET_S = 90.0      # the phase's time budget on the card
+LAUNCH_PROMPT, LAUNCH_NEW = 512, 16
+LAUNCH_CPU_STEPS = 2        # (a) the reduced m = 2 step, CUDA against CPU
+# (b) on the fake production meshes, two CLI processes side by side: every
+# arch at train_4k and decode_32k on 16x16 (6 worker processes), and the
+# dense decoders at decode_32k on 2x16x16 (one; the full grid runs
+# through the CLI: launch/dryrun.py).
+DENSE_ARCHS = ("llama3-405b", "internlm2-20b", "tinyllama-1.1b",
+               "llama3.2-1b")
+DRYRUN_RUNS = (("single", "all", "train_4k,decode_32k", 6),
+               ("multi", ",".join(DENSE_ARCHS), "decode_32k", 1))
+
+
+def _start_dryrun(workdir: str) -> list:
+    """The dry-run CLI runs, each in a session of its own (killed with its
+    workers if the phase stops); [(process, log file, rows path)]."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    runs = []
+    for mesh, archs, shapes, jobs in DRYRUN_RUNS:
+        rows = os.path.join(workdir, f"dryrun_{mesh}.json")
+        log_fh = open(os.path.join(workdir, f"dryrun_{mesh}.log"), "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             archs, "--shape", shapes, "--mesh", mesh, "--jobs", str(jobs),
+             "--out", rows], env=env, stdout=log_fh,
+            stderr=subprocess.STDOUT, start_new_session=True)
+        runs.append((proc, log_fh, rows))
+    return runs
+
+
+def _stop(proc) -> None:
+    import signal
+
+    if proc.poll() is None:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+
+
+def _dtensors(tree, specs, mesh):
+    from repro_torch.launch import steps as lsteps
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.tree import flatten
+    from torch.distributed.tensor import Replicate
+
+    for spec in flatten(specs, is_leaf=shd.is_spec):
+        if any(p != Replicate() for p in shd.placements(spec, mesh)):
+            raise AssertionError(f"{spec} is not replicated on {mesh}")
+    return lsteps.shard_tree(tree, specs, mesh)
+
+
+def _all_equal(got, want, what: str) -> int:
+    """Every leaf of ``got`` (DTensors) ``==`` ``want``'s on the bits."""
+    import torch
+    from repro_torch.tree import flatten, leaf_names
+    n = 0
+    for name, a, b in zip(leaf_names(want), flatten(got), flatten(want)):
+        local = a.to_local() if hasattr(a, "to_local") else a
+        if local.dtype != b.dtype or not torch.equal(local, b):
+            raise AssertionError(f"{what}: {name} differs")
+        n += 1
+    return n
+
+
+def _launch_steps(workdir: str) -> dict:
+    """(a) The step builders at tinyllama-1.1b's published widths on the
+    card's 1x1 mesh, the state through ``state_specs`` (every placement
+    Replicate), against the unsharded path."""
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.configs.base import InputShape
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.launch import mesh as lmesh, steps as lsteps
+    from repro_torch.models.model import init_params, make_batch
+    from repro_torch.models.transformer import prefill
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.serve import ServingEngine
+    from repro_torch.tree import flatten, tree_map
+
+    out = {}
+    mesh = lmesh.make_device_mesh()            # device=None: the card
+    log(f"[launch] mesh {mesh} ({lmesh.mesh_name(mesh)}) on a "
+        f"world-size-1 nccl group")
+    t0 = time.perf_counter()
+    tr = _full_width_trainer(os.path.join(workdir, "ckpt"))
+    cfg, opt_cfg = tr.cfg, tr.opt_cfg
+    params, opt = tr.state["params"], tr.state["opt"]
+    batch = tr.data.batch_at(0)
+    p_abs, axes, o_abs = lsteps.abstract_state(cfg, opt_cfg)
+    pspecs, ospecs = lsteps.state_specs(cfg, mesh, p_abs, axes, o_abs)
+    d_params = _dtensors(params, pspecs, mesh)
+    d_opt = _dtensors(opt, ospecs, mesh)
+    shape = InputShape("cli", SEQ, BATCH, "train")
+    bspecs = {k: v.spec for k, v in
+              lsteps.batch_specs(cfg, shape, mesh).items()}
+    d_batch = _dtensors(batch, bspecs, mesh)
+    got = lsteps.make_train_step(cfg, opt_cfg)(d_params, d_opt, d_batch)
+    want = tr._train_step(params, opt, batch)
+    torch.cuda.synchronize()
+    n = _all_equal(got, want, "make_train_step (m = 1)")
+    out["train_s"] = time.perf_counter() - t0
+    log(f"[launch] (a) make_train_step, 1 microbatch, {cfg.name} at its "
+        f"published widths ({SEQ} x {BATCH}): new params, AdamW state and "
+        f"metrics == the trainer's _train_step on the bits ({n} leaves), "
+        f"{out['train_s']:.2f} s with the trainer's set-up")
+    del got, want
+
+    t0 = time.perf_counter()
+    pshape = InputShape("p", LAUNCH_PROMPT + LAUNCH_NEW, SERVE_BATCH,
+                        "prefill")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    prompts = make_batch(cfg, InputShape("p", LAUNCH_PROMPT, SERVE_BATCH,
+                                         "prefill"), gen)
+    d_prompts = _dtensors(prompts, {"tokens": lsteps.shd.P()}, mesh)
+    got = lsteps.make_prefill_step(cfg, pshape)(d_params, d_prompts)
+    want = prefill(cfg, params, prompts, cache_len=pshape.seq_len)
+    n = _all_equal(got, want, "make_prefill_step")
+    out["prefill_s"] = time.perf_counter() - t0
+    log(f"[launch] (a) make_prefill_step, {SERVE_BATCH} x {LAUNCH_PROMPT} "
+        f"prompts into a {pshape.seq_len}-slot cache: logits and cache == "
+        f"prefill on the bits ({n} leaves), {out['prefill_s']:.2f} s")
+    del got, want, tr, opt, d_opt
+
+    t0 = time.perf_counter()
+    scfg = dataclasses.replace(cfg, attn_impl="pallas")
+    engine = ServingEngine(scfg, params, cache_len=pshape.seq_len)
+    res = engine.generate(prompts, LAUNCH_NEW)
+    logits, cache = lsteps.make_prefill_step(scfg, pshape)(d_params,
+                                                            d_prompts)
+    tok = torch.argmax(logits.to_local().float(), dim=-1).to(torch.int32)
+    serve = lsteps.make_serve_step(scfg)
+    toks = []
+    da.decode_attention.launches = 0
+    for _ in range(LAUNCH_NEW):
+        logits, cache = serve(d_params, tok, cache)
+        tok = torch.argmax(logits.to_local().float(),
+                           dim=-1).to(torch.int32)
+        toks.append(tok)
+    torch.cuda.synchronize()
+    out["launches"] = da.decode_attention.launches
+    if not torch.equal(torch.stack(toks, dim=1), res.tokens):
+        raise AssertionError("make_serve_step's greedy tokens differ from "
+                             "ServingEngine's")
+    n_attn = _attn_layers(scfg)
+    if out["launches"] != n_attn * LAUNCH_NEW:
+        raise AssertionError(f"make_serve_step launched decode_attention "
+                             f"{out['launches']} times, not "
+                             f"{n_attn * LAUNCH_NEW}")
+    out["serve_s"] = time.perf_counter() - t0
+    log(f"[launch] (a) make_serve_step, attn_impl={scfg.attn_impl}: "
+        f"{LAUNCH_NEW} greedy tokens x {SERVE_BATCH} == ServingEngine's; "
+        f"decode_attention launches {out['launches']} ({n_attn} layers x "
+        f"{LAUNCH_NEW}), {out['serve_s']:.2f} s")
+    del engine, res, logits, cache, params, d_params, prompts, d_prompts
+    _free_cuda()
+
+    # The reduced step with two microbatches, CUDA (through the 1x1 mesh)
+    # against the CPU, held as phase_trainer_cuda_cpu holds the trainer.
+    t0 = time.perf_counter()
+    rcfg = dataclasses.replace(get("llama3.2-1b").reduced(), microbatches=2)
+    ropt = AdamWConfig()
+    state = {"cuda": init_params(rcfg, seed=0)}
+    state["cpu"] = tree_map(lambda t: t.cpu(), state["cuda"])
+    opts = {d: adamw_init(p, ropt) for d, p in state.items()}
+    rgen = torch.Generator(device="cuda")
+    rgen.manual_seed(2)
+    rshape = InputShape("t", 64, 4, "train")
+    rp_abs, raxes, ro_abs = lsteps.abstract_state(rcfg, ropt)
+    rpspecs, rospecs = lsteps.state_specs(rcfg, mesh, rp_abs, raxes, ro_abs)
+    step = lsteps.make_train_step(rcfg, ropt)
+    d_state = _dtensors(state["cuda"], rpspecs, mesh)
+    d_ropt = _dtensors(opts["cuda"], rospecs, mesh)
+    worst = 0.0
+    for i in range(LAUNCH_CPU_STEPS):
+        rbatch = make_batch(rcfg, rshape, rgen)
+        d_state, d_ropt, m_gpu = step(
+            d_state, d_ropt, _dtensors(rbatch, {"tokens": lsteps.shd.P()},
+                                       mesh))
+        state["cpu"], opts["cpu"], m_cpu = step(
+            state["cpu"], opts["cpu"], tree_map(lambda t: t.cpu(), rbatch))
+        lg, lc = float(m_gpu["loss"].to_local()), float(m_cpu["loss"])
+        rel = abs(lg - lc) / abs(lc)
+        worst = max(worst, rel)
+        if not (rel <= LOSS_RTOL_BF16 and int(d_ropt["step"].to_local())
+                == int(opts["cpu"]["step"]) == i + 1):
+            raise AssertionError(f"reduced 2-microbatch step {i + 1}: loss "
+                                 f"CUDA {lg} vs CPU {lc} (rel {rel:.3e})")
+    out["cuda_cpu_s"] = time.perf_counter() - t0
+    log(f"[launch] (a) make_train_step, 2 microbatches, {rcfg.name} "
+        f"({rshape.seq_len} x {rshape.global_batch}), {LAUNCH_CPU_STEPS} "
+        f"steps: CUDA == CPU in the step count, loss within {worst:.2e} "
+        f"(limit {LOSS_RTOL_BF16}), {out['cuda_cpu_s']:.2f} s")
+    del d_state, d_ropt, state, opts
+    lmesh.release()
+    _free_cuda()
+    return out
+
+
+def _check_dryrun(rows: list) -> dict:
+    """(b)'s rows: one for every pair asked for, every dense decoder ok,
+    every error naming its op, every ok row's figures finite."""
+    import math
+    from repro_torch.configs import REGISTRY
+
+    want = {(a, s, "16x16") for a in REGISTRY
+            for s in ("train_4k", "decode_32k")} \
+        | {(a, "decode_32k", "2x16x16") for a in DENSE_ARCHS}
+    got = {(r["arch"], r["shape"], r["mesh"]) for r in rows}
+    if got != want or len(rows) != len(want):
+        raise AssertionError(f"dry run: rows {sorted(got ^ want)} missing "
+                             f"or extra")
+    counts = {"ok": 0, "error": 0, "skipped": 0}
+    for r in sorted(rows, key=lambda r: (r["mesh"], r["arch"], r["shape"])):
+        counts[r["status"]] += 1
+        head = f"[dryrun] {r['arch']} x {r['shape']} on {r['mesh']}"
+        if r["status"] == "skipped":
+            log(f"{head}: skipped ({r['reason']})")
+            continue
+        if r["status"] == "error":
+            if not r.get("op") or r["arch"] in DENSE_ARCHS:
+                raise AssertionError(f"{head}: {r['error']}")
+            log(f"{head}: error at {r['op']} ({r['where']}), "
+                f"{r['compile_s']} s")
+            continue
+        terms = (r["bytes_per_device"], r["t_compute_s"], r["t_memory_s"],
+                 r["t_collective_s"])
+        if not all(math.isfinite(v) and v > 0 for v in terms):
+            raise AssertionError(f"{head}: {terms}")
+        log(f"{head}: {r['bytes_per_device'] / 1e9:.3f} GB a device of "
+            f"80 ({'fits' if r['fits_hbm'] else 'does not fit'}); compute "
+            f"{r['t_compute_s']:.4g} s, memory {r['t_memory_s']:.4g} s, "
+            f"collective {r['t_collective_s']:.4g} s -> {r['dominant']}; "
+            f"useful flops {r['useful_flops_ratio']:.3f}; traced in "
+            f"{r['compile_s']} s at {r['traced']}")
+    return counts
+
+
+def phase_launch() -> dict:
+    """Phase 17: the sharded step builders on the card (a), the dry run on
+    the fake production meshes in a process group of its own (b)."""
+    t_start = time.perf_counter()
+    smi = _smi()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_launch_")
+    runs = _start_dryrun(workdir)
+    try:
+        out = _launch_steps(workdir)
+        rows = []
+        for proc, _, path in runs:
+            left = LAUNCH_BUDGET_S - (time.perf_counter() - t_start)
+            try:
+                proc.wait(timeout=max(left, 1.0))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"the dry run was still running at "
+                                     f"the phase's {LAUNCH_BUDGET_S:.0f} s "
+                                     f"budget")
+            with open(path) as fh:
+                rows += json.load(fh)
+        out["dryrun_s"] = time.perf_counter() - t_start
+        out["counts"] = _check_dryrun(rows)
+    finally:
+        for proc, log_fh, _ in runs:
+            _stop(proc)
+            log_fh.close()
+        shutil.rmtree(workdir, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_start
+    log(f"[launch] phase 17 on {smi}: {out['phase_s']:.1f} s (budget "
+        f"{LAUNCH_BUDGET_S:.0f} s; the dry run's {sum(out['counts'].values())}"
+        f" rows {out['counts']} in {out['dryrun_s']:.1f} s beside (a))")
+    if out["phase_s"] > LAUNCH_BUDGET_S:
+        raise AssertionError(f"phase 17 took {out['phase_s']:.1f} s, past "
+                             f"its {LAUNCH_BUDGET_S:.0f} s budget")
+    return out
+
+
 def main() -> int:
     if len(sys.argv) == 4 and sys.argv[1] == "--exec-rows-cpu":
         _cpu_exec_rows(sys.argv[2], int(sys.argv[3]))
@@ -4796,6 +5103,8 @@ def _main(t_start: float, device: dict, children: list) -> int:
     store = phase_store_examples()
     log(f"[done] store and examples phase "
         f"{time.perf_counter() - t_start:.1f} s")
+    phase_launch()
+    log(f"[done] launch phase {time.perf_counter() - t_start:.1f} s")
     finish_cpu_rows(children, experiments["cuda_rows"])
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     kernels = [{

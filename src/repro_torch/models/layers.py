@@ -16,7 +16,12 @@ Pallas kernel sits in this module, so plain torch is the port:
 * :func:`decode_attention` is the reference's plain one-token attention
   against a KV cache (the ``attn_impl="ref"`` decode path).
 
-There are no logical-axis trees: the port has no sharding layer yet.
+The logical axes of the parameters (:func:`swiglu_axes` here, the
+``*_axes`` functions of the other model modules) are trees of their own,
+aligned leaf for leaf with the init functions' tensors, as the reference's
+``(params, axes)`` pairs are; :func:`swiglu` pins its hidden activation
+through :func:`repro_torch.parallel.sharding.constrain` where the
+reference does (``layers.py:257``).
 """
 
 from __future__ import annotations
@@ -26,9 +31,11 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..parallel.sharding import constrain, split_dim
+
 __all__ = ["NEG_INF", "apply_rope", "chunked_attention", "decode_attention",
            "dense_init", "mrope_angles", "norm_init", "rms_norm",
-           "rope_angles", "swiglu", "swiglu_init"]
+           "rope_angles", "swiglu", "swiglu_axes", "swiglu_init"]
 
 NEG_INF = -1e30
 
@@ -215,7 +222,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     s, kv = k_cache.shape[1], k_cache.shape[2]
     g = h // kv
     scale = 1.0 / math.sqrt(hd)
-    qr = q.reshape(b, kv, g, hd).float() * scale
+    qr = split_dim(q[:, 0], 1, (kv, g)).float() * scale
     scores = torch.einsum("bkgd,bskd->bkgs", qr, k_cache.float())
     idx = torch.arange(s, device=q.device)[None, :]
     lim = torch.clamp(length, max=window) if window else length
@@ -240,7 +247,14 @@ def swiglu_init(gen: torch.Generator, d: int, f: int, dtype: torch.dtype, *,
     }
 
 
+def swiglu_axes() -> dict[str, tuple]:
+    return {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+            "w_down": ("mlp", "embed")}
+
+
 def swiglu(params: dict, x: torch.Tensor) -> torch.Tensor:
     gate = F.silu(x @ params["w_gate"])
     h = gate * (x @ params["w_up"])
-    return h @ params["w_down"]
+    # The model axis on the hidden dim, never on seq (layers.py:250-257).
+    axes = ("batch",) + (None,) * (h.dim() - 2) + ("mlp",)
+    return constrain(h, axes) @ params["w_down"]

@@ -25,12 +25,14 @@ from typing import Any
 import torch
 
 from ..configs.base import InputShape, ModelConfig
+from ..parallel.sharding import constrain, is_dtensor
 from ..tree import flatten
 from .transformer import (decode_step, forward_train, init_cache,
                           init_params, param_dtype, prefill)
 
 __all__ = ["MASK_PROB", "VISION_FRACTION", "cache_len_for", "decode_step",
-           "forward_train", "init_cache", "init_params", "loss_fn",
+           "forward_train", "init_cache", "init_cache_specs", "init_params",
+           "input_specs", "loss_fn",
            "make_batch", "param_dtype", "prefill", "state_bytes",
            "vision_layout"]
 
@@ -66,6 +68,46 @@ def vision_layout(b: int, s: int, device: str | torch.device = "cpu"
             thw.to(torch.int32).expand(b, s, 3).contiguous())
 
 
+def _batch_shapes(cfg: ModelConfig, shape: InputShape
+                  ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
+    """(shape, dtype) of each input of the train/prefill batch, as the
+    reference's ``_batch_shapes`` (``model.py:87-102``)."""
+    b, s = shape.global_batch, shape.seq_len
+    dt = param_dtype(cfg)
+    if not cfg.embed_inputs:  # audio encoder: frame embeddings + targets
+        return {"frames": ((b, s, cfg.d_model), dt),
+                "labels": ((b, s), torch.int32),
+                "mask": ((b, s), torch.bool)}
+    out = {"tokens": ((b, s), torch.int32)}
+    if cfg.mrope_sections is not None:  # VLM: patches + 3-D positions
+        n_patches = int(s * VISION_FRACTION)
+        out["vision_embeds"] = ((b, n_patches, cfg.d_model), dt)
+        out["vision_mask"] = ((b, s), torch.bool)
+        out["positions_thw"] = ((b, s, 3), torch.int32)
+    return out
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape) -> dict[str, Any]:
+    """Meta-device stand-ins for the inputs of (cfg, shape): the batch,
+    or for a decode shape ``{"token": (B,), "cache": ...}`` matching
+    ``serve_step`` (torch has no ``ShapeDtypeStruct``; a meta tensor
+    carries the shape and dtype and allocates nothing)."""
+    def meta(shp, dt):
+        return torch.empty(shp, dtype=dt, device="meta")
+
+    if shape.kind == "decode":
+        cache = init_cache_specs(cfg, shape.global_batch,
+                                 cache_len_for(cfg, shape))
+        return {"token": meta((shape.global_batch,), torch.int32),
+                "cache": cache}
+    return {k: meta(*v) for k, v in _batch_shapes(cfg, shape).items()}
+
+
+def init_cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> Any:
+    """Meta-device tree matching :func:`init_cache`."""
+    return init_cache(cfg, batch, cache_len, device="meta")
+
+
 def make_batch(cfg: ModelConfig, shape: InputShape,
                gen: torch.Generator) -> dict:
     """A random batch on ``gen``'s device: tokens (B, S) int32, uniform
@@ -97,11 +139,34 @@ def make_batch(cfg: ModelConfig, shape: InputShape,
     return out
 
 
+def _logsumexp(logits: torch.Tensor) -> torch.Tensor:
+    """logsumexp over the vocab axis.  On a DTensor whose vocab axis is
+    sharded it is written out (max, then sum of exp), each reduction
+    pinned to the batch sharding, so that DTensor all-reduces two (B, S)
+    tensors, as GSPMD does, instead of gathering the logits (or their
+    gradient)."""
+    if not is_dtensor(logits):
+        return torch.logsumexp(logits, dim=-1)
+    rows = ("batch", None, None)
+    m = constrain(logits.amax(dim=-1, keepdim=True).detach(), rows)
+    total = constrain(torch.sum(torch.exp(logits - m), dim=-1, keepdim=True),
+                      rows)
+    return (m + torch.log(total))[..., 0]
+
+
 def _pick(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """logits[..., targets] via a masked reduction over the vocab axis."""
     iota = torch.arange(logits.shape[-1], device=logits.device)
-    hit = iota == targets[..., None]
-    return torch.sum(torch.where(hit, logits, 0.0), dim=-1)
+    # Sharded like the logits, so the masked sum's gradient is too.
+    hit = constrain(iota == targets[..., None], ("batch", None, "vocab"))
+    return _per_token(torch.sum(torch.where(hit, logits, 0.0), dim=-1))
+
+
+def _per_token(x: torch.Tensor) -> torch.Tensor:
+    """A (B, S) per-token loss term pinned to the batch sharding: the
+    partial sums over the vocab are all-reduced, not scattered over the
+    sequence (which would shard the logits' gradient the same way)."""
+    return constrain(x, ("batch", None))
 
 
 def _lm_loss(cfg: ModelConfig, logits: torch.Tensor,
@@ -109,7 +174,7 @@ def _lm_loss(cfg: ModelConfig, logits: torch.Tensor,
     """Next-token cross entropy: predict tokens[:, 1:] from logits[:, :-1]."""
     logits = logits[:, :-1].float()
     targets = tokens[:, 1:].to(device=logits.device, dtype=torch.long)
-    lse = torch.logsumexp(logits, dim=-1)
+    lse = _logsumexp(logits)
     picked = _pick(logits, targets)
     return torch.mean(lse - picked)
 
@@ -121,7 +186,7 @@ def _masked_loss(cfg: ModelConfig, logits: torch.Tensor,
     logits = logits.float()
     labels = labels.to(device=logits.device, dtype=torch.long)
     mask = mask.to(device=logits.device, dtype=torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
+    lse = _logsumexp(logits)
     per_tok = (lse - _pick(logits, labels)) * mask
     return per_tok.sum() / torch.clamp(mask.sum(), min=1.0)
 

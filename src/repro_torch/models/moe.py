@@ -30,9 +30,10 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .layers import dense_init, swiglu, swiglu_init
+from ..parallel.sharding import constrain
+from .layers import dense_init, swiglu, swiglu_axes, swiglu_init
 
-__all__ = ["moe_apply", "moe_init", "router_aux_loss"]
+__all__ = ["moe_apply", "moe_axes", "moe_init", "router_aux_loss"]
 
 
 def moe_init(gen: torch.Generator, d: int, n_experts: int, expert_ff: int,
@@ -63,6 +64,17 @@ def moe_init(gen: torch.Generator, d: int, n_experts: int, expert_ff: int,
         p["shared"] = swiglu_init(gen, d, n_shared * expert_ff, dtype,
                                   lead=lead)
     return p
+
+
+def moe_axes(n_shared: int) -> dict:
+    """Logical axes aligned with :func:`moe_init`'s tree."""
+    axes = {"router": ("embed", "experts"),
+            "experts": {"w_gate": ("experts", "embed", "mlp"),
+                        "w_up": ("experts", "embed", "mlp"),
+                        "w_down": ("experts", "mlp", "embed")}}
+    if n_shared:
+        axes["shared"] = swiglu_axes()
+    return axes
 
 
 def router_aux_loss(gates: torch.Tensor, top_idx: torch.Tensor,
@@ -105,7 +117,7 @@ def moe_apply(params: dict, x: torch.Tensor, *, top_k: int,
 
     g = math.gcd(t, max(1, n_groups))
     tl = t // g
-    xg = xt.reshape(g, tl, d)
+    xg = constrain(xt.reshape(g, tl, d), ("batch", None, None))
 
     logits = xg.float() @ params["router"]                    # (G, Tl, E)
     gates = torch.softmax(logits, dim=-1)
@@ -141,17 +153,21 @@ def moe_apply(params: dict, x: torch.Tensor, *, top_k: int,
     buf = torch.zeros((g, n_phys, capacity + 1, d), dtype=x.dtype,
                       device=x.device)
     buf = buf.index_put((rows, flat_e, safe_pos), upd, accumulate=True)
+    # The MoE all-to-all: the expert axis picks up "model" (moe.py:152).
+    buf = constrain(buf, ("batch", "experts", None, None))
 
     e = params["experts"]
     gate = F.silu(torch.einsum("gecd,edf->gecf", buf, e["w_gate"]))
     up = torch.einsum("gecd,edf->gecf", buf, e["w_up"])
     out_buf = torch.einsum("gecf,efd->gecd", gate * up, e["w_down"])
+    out_buf = constrain(out_buf, ("batch", "experts", None, None))
 
     contrib = out_buf[rows, flat_e, safe_pos]                 # (G, TSl, d)
     contrib = torch.where(keep[..., None], contrib,
                           torch.zeros((), dtype=contrib.dtype,
                                       device=x.device)) * flat_w[..., None]
-    yt = contrib.reshape(g, tl, top_k, d).sum(dim=2).reshape(t, d)
+    yt = contrib.reshape(g, tl, top_k, d).sum(dim=2)
+    yt = constrain(yt, ("batch", None, None)).reshape(t, d)
 
     if "shared" in params:
         yt = yt + swiglu(params["shared"], xt)

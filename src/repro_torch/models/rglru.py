@@ -33,8 +33,8 @@ import torch.nn.functional as F
 
 from .layers import dense_init
 
-__all__ = ["rglru_block_apply", "rglru_block_init", "rglru_decode_step",
-           "rglru_init_state"]
+__all__ = ["rglru_block_apply", "rglru_block_axes", "rglru_block_init",
+           "rglru_decode_step", "rglru_init_state"]
 
 _C = -8.0  # the paper's fixed exponent scale
 
@@ -60,6 +60,13 @@ def rglru_block_init(gen: torch.Generator, d: int, w: int, conv_width: int,
         "lambda": lam,
         "b_rg": torch.zeros(lead + (2 * w,), dtype=torch.float32, device=dev),
     }
+
+
+def rglru_block_axes() -> dict:
+    """Logical axes aligned with :func:`rglru_block_init`'s tree."""
+    return {"w_gate": ("embed", "lru"), "w_in": ("embed", "lru"),
+            "w_out": ("lru", "embed"), "w_rg": ("lru", "lru"),
+            "conv": ("conv", "lru"), "lambda": ("lru",), "b_rg": ("lru",)}
 
 
 def _causal_conv(y: torch.Tensor, conv: torch.Tensor,

@@ -54,8 +54,12 @@ batch's ``positions_thw`` (B, S, 3), or (pos, pos, pos) without it; a
 decode step places the new token at ``positions_thw`` (B, 3) if given,
 else at (length, length, length), as the reference does.  Encoder-only
 configs (``embed_inputs=False``, bidirectional) have no decode step.
-``cfg.remat`` is ignored: the port keeps every activation, which does not
-change the numbers.
+``cfg.remat`` is ignored on plain tensors: the port keeps every
+activation, which does not change the numbers.  On DTensors (the launch
+layer's sharded steps) the model follows the reference's sharding
+annotations (:func:`repro_torch.parallel.sharding.constrain`), recomputes
+each layer in the backward under ``cfg.remat``, runs attention on each
+device's shards, and builds a sharded prefill cache.
 """
 
 from __future__ import annotations
@@ -63,26 +67,33 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..kernels import ops
+from ..parallel.sharding import (constrain, is_dtensor, per_shard,
+                                 replicate_dims, sharded_zeros, split_dim)
+from ..tree import is_axes, tree_map
 from .layers import (apply_rope, chunked_attention, dense_init,
                      mrope_angles, norm_init, rms_norm, rope_angles, swiglu,
-                     swiglu_init)
-from .moe import moe_apply, moe_init
-from .rglru import (rglru_block_apply, rglru_block_init, rglru_decode_step,
-                    rglru_init_state)
-from .xlstm import (mlstm_block_apply, mlstm_block_init, mlstm_decode_step,
-                    mlstm_init_state, slstm_block_apply, slstm_block_init,
-                    slstm_decode_step, slstm_init_state)
+                     swiglu_axes, swiglu_init)
+from .moe import moe_apply, moe_axes, moe_init
+from .rglru import (rglru_block_apply, rglru_block_axes, rglru_block_init,
+                    rglru_decode_step, rglru_init_state)
+from .xlstm import (mlstm_block_apply, mlstm_block_axes, mlstm_block_init,
+                    mlstm_decode_step, mlstm_init_state, slstm_block_apply,
+                    slstm_block_axes, slstm_block_init, slstm_decode_step,
+                    slstm_init_state)
 
-__all__ = ["decode_step", "forward_train", "init_cache", "init_params",
-           "param_dtype", "prefill"]
+__all__ = ["cache_axes", "decode_step", "forward_train", "init_cache",
+           "init_params", "param_axes", "param_dtype", "prefill"]
 
 _ATTN = ("attn", "local")
 _KINDS = _ATTN + ("rec", "mlstm", "slstm")
 _XLSTM = ("mlstm", "slstm")     # blocks without an FFN
+_RESIDUAL = ("batch", "seq", "embed")
 
 
 def param_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -139,9 +150,18 @@ def init_params(cfg: ModelConfig, seed: int = 0,
                 device: str | torch.device | None = None) -> dict:
     """The full parameter tree, drawn from ``torch.Generator(device)``
     seeded with ``seed`` (a pure function of (cfg, seed, device type)).
-    ``device=None`` means CUDA, as everywhere in the port."""
+    ``device=None`` means CUDA, as everywhere in the port; ``"meta"``
+    gives shape-and-dtype stand-ins (the CPU init traced under fake
+    tensors, nothing allocated)."""
     check_supported(cfg)
     dev = resolve_device(device)
+    if dev.type == "meta":
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        with FakeTensorMode():
+            fake = init_params(cfg, seed, device="cpu")
+        return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                              device=dev), fake)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     dt = param_dtype(cfg)
@@ -167,6 +187,82 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     return params
 
 
+def _block_axes(cfg: ModelConfig, kind: str) -> dict:
+    """Logical axes aligned with :func:`_block_init`'s tree."""
+    norm = ("embed",)
+    axes: dict = {"norm_t": norm}
+    if kind in _ATTN:
+        axes["attn"] = {"w_q": ("embed", "heads"),
+                        "w_k": ("embed", "kv_heads"),
+                        "w_v": ("embed", "kv_heads"),
+                        "w_o": ("heads", "embed")}
+    elif kind == "rec":
+        axes["rec"] = rglru_block_axes()
+    elif kind == "mlstm":
+        axes["mlstm"] = mlstm_block_axes()
+    else:
+        axes["slstm"] = slstm_block_axes()
+    if kind in _XLSTM:
+        return axes
+    if cfg.n_experts:
+        axes["norm_f"] = norm
+        axes["ffn"] = moe_axes(cfg.n_shared_experts)
+    elif cfg.d_ff:
+        axes["norm_f"] = norm
+        axes["ffn"] = swiglu_axes()
+    return axes
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """The logical-axes tree aligned leaf for leaf with
+    :func:`init_params`'s tree (the second half of the reference's
+    ``init_params`` return, ``transformer.py:106-151``): each leaf a tuple
+    of axis names or None, the stacked repeats prefixed by "layers"."""
+    check_supported(cfg)
+    unit = cfg.block_unit
+    n_rep = cfg.n_layers // len(unit)
+    axes: dict = {}
+    if cfg.embed_inputs:
+        axes["embed"] = ("vocab", "embed")
+    axes["norm_out"] = ("embed",)
+    if not cfg.tie_embeddings:
+        axes["head"] = ("embed", "vocab")
+    axes["layers"] = tuple(
+        tree_map(lambda a: ("layers",) + a, _block_axes(cfg, kind),
+                 is_leaf=is_axes) for kind in unit)
+    if cfg.n_layers - n_rep * len(unit):
+        axes["tail"] = tuple(_block_axes(cfg, kind)
+                             for kind in cfg.blocks[n_rep * len(unit):])
+    return axes
+
+
+def cache_axes(cfg: ModelConfig) -> dict:
+    """The logical-axes tree aligned with :func:`init_cache`'s tree (the
+    reference's ``cache_axes``, ``transformer.py:563-590``).  A KV cache's
+    "seq" axis is what the decode rules map to the "model" mesh axis; the
+    recurrent states shard on batch only."""
+    check_supported(cfg)
+
+    def entry(kind: str):
+        if kind in _ATTN:
+            kv = ("batch", "seq", "kv_heads", None)
+            return {"k": kv, "v": kv}
+        if kind == "rec":
+            return {"h": ("batch", "lru"), "conv": ("batch", None, "lru")}
+        if kind == "mlstm":
+            return (("batch", "heads", None, None),
+                    ("batch", "heads", None), ("batch", "heads"))
+        return tuple(("batch", None) for _ in range(4))
+
+    unit = cfg.block_unit
+    n_rep = cfg.n_layers // len(unit)
+    n_tail = cfg.n_layers - n_rep * len(unit)
+    stacked = tuple(tree_map(lambda a: ("layers",) + a, entry(kind),
+                             is_leaf=is_axes) for kind in unit)
+    tail = tuple(entry(k) for k in cfg.blocks[cfg.n_layers - n_tail:])
+    return {"layers": stacked, "tail": tail, "length": ("batch",)}
+
+
 # ---------------------------------------------------------------------------
 # Apply
 # ---------------------------------------------------------------------------
@@ -175,12 +271,18 @@ def _attn_apply(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
                 cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     b, s, _ = x.shape
     q, k, v = _qkv(cfg, p, x, cos, sin)
+    # Heads own the model axis inside attention, never seq
+    # (transformer.py:181-183).
+    q = constrain(q, ("batch", None, "heads", None))
     kx, vx = _layout_kv(cfg, k, v)
     window = cfg.attn_window if kind == "local" else 0
-    out = ops.flash_attention(q, kx, vx, causal=cfg.causal, window=window,
-                              impl=cfg.attn_impl, q_chunk=cfg.attn_q_chunk,
-                              kv_chunk=cfg.attn_kv_chunk)
-    return out.reshape(b, s, -1) @ p["w_o"]
+    out = per_shard(
+        lambda q, k, v: ops.flash_attention(
+            q, k, v, causal=cfg.causal, window=window, impl=cfg.attn_impl,
+            q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk),
+        q, kx, vx, dims=(0, 2))
+    out = constrain(out.reshape(b, s, -1), ("batch", None, "heads"))
+    return out @ p["w_o"]
 
 
 def _layout_kv(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor
@@ -190,8 +292,9 @@ def _layout_kv(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor
     if cfg.attn_layout != "repeat_kv":
         return k, v
     g = cfg.n_heads // cfg.n_kv_heads
-    return (torch.repeat_interleave(k, g, dim=2),
-            torch.repeat_interleave(v, g, dim=2))
+    axes = ("batch", "seq", "heads", None)
+    return (constrain(torch.repeat_interleave(k, g, dim=2), axes),
+            constrain(torch.repeat_interleave(v, g, dim=2), axes))
 
 
 def _qkv(cfg: ModelConfig, a: dict, h: torch.Tensor, cos: torch.Tensor,
@@ -199,9 +302,9 @@ def _qkv(cfg: ModelConfig, a: dict, h: torch.Tensor, cos: torch.Tensor,
     """The projections of ``h`` (B, S, d), with RoPE on q and k."""
     b, s, _ = h.shape
     hd = cfg.head_dim
-    q = (h @ a["w_q"]).reshape(b, s, cfg.n_heads, hd)
-    k = (h @ a["w_k"]).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (h @ a["w_v"]).reshape(b, s, cfg.n_kv_heads, hd)
+    q = split_dim(h @ a["w_q"], -1, (cfg.n_heads, hd))
+    k = split_dim(h @ a["w_k"], -1, (cfg.n_kv_heads, hd))
+    v = split_dim(h @ a["w_v"], -1, (cfg.n_kv_heads, hd))
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
@@ -241,7 +344,14 @@ def _block_apply_full(cfg: ModelConfig, kind: str, p: dict,
         x = x + _attn_apply(cfg, kind, p["attn"], h, cos, sin)
     else:
         x = x + _recurrent(cfg, kind, p, h)[0]
-    return _ffn(cfg, p, x, cfg.capacity_factor)
+    if kind in _XLSTM:
+        return _ffn(cfg, p, x, cfg.capacity_factor)
+    # The block's output constraint (transformer.py:236), here also on the
+    # residual between the mixer and the FFN: GSPMD propagates a
+    # constraint backwards through the elementwise add, DTensor does not.
+    x = constrain(x, _RESIDUAL)
+    x, aux = _ffn(cfg, p, x, cfg.capacity_factor)
+    return constrain(x, _RESIDUAL), aux
 
 
 def _store(entry, new) -> None:
@@ -268,14 +378,21 @@ def _block_prefill(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
     if kind not in _ATTN:
         out, state = _recurrent(cfg, kind, p, h)
         _store(entry, state)
-        return _ffn(cfg, p, x + out, cfg.capacity_factor)[0]
+        x = constrain(x + out, _RESIDUAL)
+        return constrain(_ffn(cfg, p, x, cfg.capacity_factor)[0], _RESIDUAL)
     q, k, v = _qkv(cfg, p["attn"], h, cos, sin)
+    # The training pass's pins (the reference's prefill has only the k/v
+    # ones, and GSPMD carries the batch sharding of its inputs through;
+    # DTensor places each op on its own, so the residual is pinned too).
+    q = constrain(q, ("batch", None, "heads", None))
     kx, vx = _layout_kv(cfg, k, v)
     window = cfg.attn_window if kind == "local" else 0
-    out = chunked_attention(q, kx, vx, causal=cfg.causal, window=window,
-                            q_chunk=cfg.attn_q_chunk,
-                            kv_chunk=cfg.attn_kv_chunk)
-    x = x + out.reshape(b, s, -1) @ p["attn"]["w_o"]
+    out = per_shard(
+        lambda q, k, v: chunked_attention(
+            q, k, v, causal=cfg.causal, window=window,
+            q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk),
+        q, kx, vx, dims=(0, 2))
+    x = constrain(x + out.reshape(b, s, -1) @ p["attn"]["w_o"], _RESIDUAL)
     for name, t in (("k", k), ("v", v)):
         buf = entry[name]
         if kind == "local" and s >= buf.shape[1]:
@@ -285,7 +402,7 @@ def _block_prefill(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
             buf.copy_(torch.roll(t[:, -w:], s % w, dims=1))
         else:
             buf[:, :s] = t
-    return _ffn(cfg, p, x, cfg.capacity_factor)[0]
+    return constrain(_ffn(cfg, p, x, cfg.capacity_factor)[0], _RESIDUAL)
 
 
 def _block_decode(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
@@ -336,6 +453,13 @@ def _scatter_time(cache: torch.Tensor, new: torch.Tensor,
     which reads and writes the whole cache; a dropped row rewrites its
     own value."""
     rows, idx, keep = slot
+    if is_dtensor(cache):
+        # A sharded cache takes the reference's blend (elementwise, so it
+        # keeps the cache's placements), written back in place.
+        hit = (torch.arange(cache.shape[1], device=idx.device)
+               == idx[:, None]) & keep[:, None]
+        cache.copy_(torch.where(hit[:, :, None, None], new, cache))
+        return
     cache[rows, idx] = torch.where(keep[:, None, None], new[:, 0],
                                    cache[rows, idx])
 
@@ -363,6 +487,37 @@ def _stack_tree(trees: list):
     return torch.stack(trees)
 
 
+class _EmbedLookup(torch.autograd.Function):
+    # Only reached with DTensor tables (``_embed``).
+    """The table's rows at ``tokens``, with the reference's sharded
+    gradient (``transformer.py:381-405``): the scatter-add of the rows'
+    gradients goes into a zero table pinned to the table's own
+    ("vocab", "embed") placements, in the gradient's dtype, so no device
+    holds a replicated full-size buffer."""
+
+    @staticmethod
+    def forward(ctx, table: torch.Tensor, tokens: torch.Tensor):
+        ctx.save_for_backward(tokens)
+        ctx.shape, ctx.dtype = table.shape, table.dtype
+        # Gather the d_model dim (the FSDP gather): a table sharded there
+        # would make DTensor replicate the tokens instead, and every
+        # device would then run the whole batch.  The vocab-sharded
+        # lookup's masked partial sum is reduced here, inside the
+        # function, since DTensor cannot turn its gradient back into one.
+        from torch.distributed.tensor import Replicate
+
+        x = F.embedding(tokens, replicate_dims(table, (1,)))
+        return x.redistribute(x.device_mesh, [
+            Replicate() if p.is_partial() else p for p in x.placements])
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (tokens,) = ctx.saved_tensors
+        dtable = torch.ops.aten.embedding_dense_backward(
+            g, tokens, ctx.shape[0], -1, False)
+        return constrain(dtable, ("vocab", "embed")).to(ctx.dtype), None
+
+
 def _embed(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
     """The input sequence (B, S, d) on the parameters' device: frame
     embeddings as they are (encoder-only), else token embeddings, with a
@@ -372,7 +527,11 @@ def _embed(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
     dev = params["norm_out"].device     # an encoder has no "embed" leaf
     if not cfg.embed_inputs:
         return batch["frames"].to(dev)
-    x = params["embed"][batch["tokens"].to(device=dev, dtype=torch.long)]
+    tokens = batch["tokens"].to(device=dev, dtype=torch.long)
+    if is_dtensor(params["embed"]):
+        x = _EmbedLookup.apply(params["embed"], tokens)
+    else:
+        x = params["embed"][tokens]
     if "vision_embeds" in batch:
         mask = batch["vision_mask"].to(dev)                   # (B, S) bool
         patches = batch["vision_embeds"].to(dev)              # (B, P, d)
@@ -403,8 +562,12 @@ def _rope_tables(cfg: ModelConfig, positions: torch.Tensor,
 def _head(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, params["norm_out"], cfg.norm_eps)
     if cfg.tie_embeddings:
-        return x @ params["embed"].T
-    return x @ params["head"]
+        logits = x @ params["embed"].T
+    else:
+        logits = x @ params["head"]
+    # Vocab owns the model axis, even under seq-parallel rules
+    # (transformer.py:430-436).
+    return constrain(logits, ("batch", None, "vocab"))
 
 
 def _layers(cfg: ModelConfig, params: dict, cache: dict | None = None):
@@ -429,12 +592,20 @@ def forward_train(cfg: ModelConfig, params: dict, batch: dict
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forced pass. Returns (logits (B,S,V), moe_aux_loss scalar)."""
     check_supported(cfg)
-    x = _embed(cfg, params, batch)
+    x = constrain(_embed(cfg, params, batch), _RESIDUAL)
     positions = torch.arange(x.shape[1], device=x.device)
     cos, sin = _rope_tables(cfg, positions, batch.get("positions_thw"))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    # A sharded pass recomputes each layer in the backward under
+    # cfg.remat, as the reference's scan body does; the unsharded port
+    # keeps every activation (module doc).
+    remat = cfg.remat and is_dtensor(x)
     for kind, p, _ in _layers(cfg, params):
-        x, layer_aux = _block_apply_full(cfg, kind, p, x, cos, sin)
+        if remat:
+            x, layer_aux = checkpoint(_block_apply_full, cfg, kind, p, x,
+                                      cos, sin, use_reentrant=False)
+        else:
+            x, layer_aux = _block_apply_full(cfg, kind, p, x, cos, sin)
         aux = aux + layer_aux
     return _head(cfg, params, x), aux
 
@@ -487,7 +658,11 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, *,
                          f"{cache_len}")
     cos, sin = _rope_tables(cfg, torch.arange(s, device=x.device),
                             batch.get("positions_thw"))
-    cache = init_cache(cfg, b, cache_len, device=x.device)
+    if is_dtensor(x):
+        cache = sharded_zeros(init_cache(cfg, b, cache_len, device="meta"),
+                              cache_axes(cfg), x.device_mesh)
+    else:
+        cache = init_cache(cfg, b, cache_len, device=x.device)
     for kind, p, entry in _layers(cfg, params, cache):
         x = _block_prefill(cfg, kind, p, x, cos, sin, entry)
     cache["length"].fill_(s)

@@ -28,9 +28,10 @@ import torch.nn.functional as F
 
 from .layers import dense_init, rms_norm
 
-__all__ = ["mlstm_block_apply", "mlstm_block_init", "mlstm_decode_step",
-           "mlstm_init_state", "slstm_block_apply", "slstm_block_init",
-           "slstm_decode_step", "slstm_init_state"]
+__all__ = ["mlstm_block_apply", "mlstm_block_axes", "mlstm_block_init",
+           "mlstm_decode_step", "mlstm_init_state", "slstm_block_apply",
+           "slstm_block_axes", "slstm_block_init", "slstm_decode_step",
+           "slstm_init_state"]
 
 
 # ---------------------------------------------------------------------------
@@ -57,6 +58,14 @@ def mlstm_block_init(gen: torch.Generator, d: int, n_heads: int,
         "b_if": b_if.expand(lead + (2 * n_heads,)).clone(),
         "ln_inner": torch.ones(lead + (up,), dtype=dtype, device=dev),
     }
+
+
+def mlstm_block_axes() -> dict:
+    """Logical axes aligned with :func:`mlstm_block_init`'s tree."""
+    qkv = ("mlp", "heads_mlp")
+    return {"w_up": ("embed", "mlp"), "w_gate": ("embed", "mlp"),
+            "w_q": qkv, "w_k": qkv, "w_v": qkv, "w_down": ("mlp", "embed"),
+            "w_if": ("mlp", None), "b_if": (None,), "ln_inner": ("mlp",)}
 
 
 def _mlstm_chunk(q, k, v, log_i, log_f, state):
@@ -199,6 +208,13 @@ def slstm_block_init(gen: torch.Generator, d: int, n_heads: int,
         "b": bias,
         "ln_inner": torch.ones(lead + (d,), dtype=dtype, device=dev),
     }
+
+
+def slstm_block_axes() -> dict:
+    """Logical axes aligned with :func:`slstm_block_init`'s tree."""
+    return {"w_in": ("embed", "mlp"), "w_ff_gate": ("embed", "mlp"),
+            "w_ff_down": ("mlp", "embed"), "r": (None, "heads", None, None),
+            "b": (None, "embed"), "ln_inner": ("embed",)}
 
 
 def slstm_init_state(batch: int, d: int, device: torch.device, *,

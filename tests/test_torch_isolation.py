@@ -12,8 +12,10 @@
   forward and masked-prediction loss through the kernel route, and runs
   the two-level model, attribution and a traced replay, a small fleet
   sized from the model zoo, the availability scheduler and the adaptive
-  scheduler, and a tiny inline suite through ``run_suite`` and the result
-  store (its ``register`` naming ``benchmarks.run``, which is skipped);
+  scheduler, a tiny inline suite through ``run_suite`` and the result
+  store (its ``register`` naming ``benchmarks.run``, which is skipped),
+  and the launch layer's dry run of the tiny trainer's config on a 2x2
+  fake mesh;
   afterwards ``sys.modules`` holds neither, nor ``benchmarks``.
 * Without CUDA, an entry point called without ``device=`` raises instead
   of running on the CPU.
@@ -73,12 +75,15 @@ def test_port_files_found():
             "xlstm.py", "record.py", "store.py", "suite.py", "cli.py",
             "__main__.py", "quickstart_torch.py", "predictor_study_torch.py",
             "trace_timeline_torch.py", "serving_torch.py",
-            "fault_tolerant_training_torch.py"} <= names
+            "fault_tolerant_training_torch.py", "sharding.py", "mesh.py",
+            "steps.py", "hlo.py", "dryrun.py"} <= names
     port = ROOT / "src" / "repro_torch"
     assert {"fleet/__init__.py", "fleet/sim.py", "ft/estimator.py",
             "obs/trace.py", "core/multilevel.py", "store/__init__.py",
             "store/__main__.py", "store/cli.py", "store/record.py",
-            "store/store.py", "store/suite.py"} \
+            "store/store.py", "store/suite.py", "parallel/__init__.py",
+            "parallel/sharding.py", "launch/mesh.py", "launch/steps.py",
+            "launch/hlo.py", "launch/dryrun.py"} \
         <= {str(p.relative_to(port)) for p in PORT_FILES
             if port in p.parents}
 
@@ -234,6 +239,17 @@ with tempfile.TemporaryDirectory() as d:
     again = run_suite(tiny, store=ResultStore(d), device="cpu")
     assert again.ok and again.items[0].cached
     assert store_main(["--store", d, "list"]) == 0
+from repro_torch.launch import dryrun, mesh as lmesh
+from repro_torch.launch.steps import make_train_step
+from repro_torch.parallel import DEFAULT_RULES, logical_to_spec
+
+assert logical_to_spec(("batch", "embed"), (4, 32),
+                       lmesh.make_fake_mesh((2, 2), ("data", "model")),
+                       DEFAULT_RULES) == ("data",)
+row = dryrun.run_pair(cfg, InputShape("t", 16, 4, "train"),
+                      lmesh.make_fake_mesh((2, 2), ("data", "model")), "2x2")
+assert row["status"] == "ok" and row["n_collectives"] > 0, row
+lmesh.release()
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro",
                                        "benchmarks"))
@@ -264,6 +280,7 @@ def _entry_points():
     from repro_torch.experiments import (ExperimentSpec, ScenarioSpec,
                                          evaluate_strategies, run_experiment)
     from repro_torch.models.convert import params_from_numpy
+    from repro_torch.launch.mesh import make_device_mesh
     from repro_torch.launch.serve import main as serve_main
     from repro_torch.models.model import init_cache, init_params
     from repro_torch.experiments import run_suite
@@ -302,6 +319,7 @@ def _entry_points():
         "init_cache": lambda: init_cache(get("tinyllama-1.1b").reduced(),
                                          1, 8),
         "serve_cli": lambda: serve_main(["--new-tokens", "1"]),
+        "make_device_mesh": make_device_mesh,
         "run_suite": lambda: run_suite(SuiteSpec.from_dict(suite),
                                        store=ResultStore(tempfile.mkdtemp())),
         "store_cli_run": lambda: store_main(
@@ -315,7 +333,8 @@ def _entry_points():
                                    "run_lanes_torch",
                                    "FaultTolerantTrainer", "init_params",
                                    "params_from_numpy", "init_cache",
-                                   "serve_cli", "run_suite",
+                                   "serve_cli", "make_device_mesh",
+                                   "run_suite",
                                    "store_cli_run"])
 def test_no_silent_cpu_fallback(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
