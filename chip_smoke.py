@@ -319,13 +319,38 @@ result):
                llama3.2-1b with two microbatches, CUDA against the CPU
                (the step count ``==``, the loss within 1e-3).  (b) The dry
                run (``python -m repro_torch.launch.dryrun``, two processes
-               started with the phase, 6 and 1 workers) on the fake
+               started with the phase, 7 and 1 workers) on the fake
                production meshes: every arch at train_4k and decode_32k on
                16x16, the dense decoders at decode_32k on 2x16x16; every
-               dense decoder's row ok,
-               every error row naming its op; each row's bytes a device
+               row ok (an error row fails the phase), the counts printed
+               beside this torch's version; each row's bytes a device
                against 80 GB, the three roofline terms and the dominant
                one.  The phase fails past its 90 s budget.
+18. families' trainer - ``FaultTolerantTrainer``'s own step at published
+               widths for recurrentgemma-2b (26 layers, 3.55 B params,
+               35.5 GB of train state; seq 128 x batch 8, or 64 if its
+               first loss is not finite: Queue C R2), xlstm-125m (12
+               layers), hubert-xlarge (48 layers, 2,048 frames of one
+               row: 8 rows' activations do not fit beside the state) and
+               qwen2-moe-a2.7b (its depth cut to ``TRAIN_LAYERS``, widths
+               kept): ``TRAIN_STEPS`` steps, each loss finite and the step
+               counter advancing, ms a step, tokens/s, the state's bytes
+               and the peak device memory.  Then both ckpt_delta kernels on
+               every fp32 AdamW-moment leaf against its value one step
+               earlier, each launch ``==`` its plain version on the bits
+               (xlstm's 48-element gate bias, not a multiple of the
+               256-element block, among them), and timed over the largest
+               m leaves beside the bytes bound (no checkpoint is written at
+               full width).  Then each family's reduced fault-tolerant
+               loop (phase 9's trace and 30 steps: periodic saves, a
+               proactive delta save, rollbacks) on CUDA and on the CPU:
+               every counter ``==``, the restores' (step, kind) ``==`` with
+               a delta among them, the final loss within 1e-3 (bf16,
+               hubert-xlarge) or 1e-4 (float32: qwen2-moe-a2.7b,
+               recurrentgemma-2b and xlstm-125m, where bf16 rounding alone
+               crosses 1e-3 over 30 steps: router near-ties, a growing
+               RG-LRU state, exponential gates).  The phase fails past its
+               150 s budget.
 
 The last two lines are the ``kernels`` JSON line (all five TPU kernels;
 the event_step entry reports lane_loop_kernel, which carries the advance
@@ -333,7 +358,8 @@ on the main path, with its adaptive instantiation's check, time, launches
 and bound from phase 3a, the predictor study's launches, the
 experiment phase's launches and check, and phase 16's store-run and
 examples launches; the ckpt_delta entries add phase 16's example
-launches; the attention entries add the
+launches and phase 18's launches and times on each family's moment
+leaves; the attention entries add the
 families' and modalities' launches per cell and the hd-256, per-family,
 qwen2-vl-72b and (flash) hubert-xlarge timings) and
 ``{"ok": true, "device": {...}}``.  Run from a checkout: it imports the
@@ -2945,8 +2971,10 @@ def phase_trainer(root: str, errs: dict) -> dict:
     return {"launches": launches, "timing": timing}
 
 
-def phase_trainer_cuda_cpu(root: str) -> None:
-    """The reduced trainer of tests/test_ft.py on CUDA and on the CPU."""
+def phase_trainer_cuda_cpu(root: str, arch: str = "llama3.2-1b",
+                           dtype: str | None = None) -> dict:
+    """The reduced trainer of tests/test_ft.py (``arch`` at its reduced
+    size, in ``dtype`` if given) on CUDA and on the CPU."""
     import math
 
     import numpy as np
@@ -2956,15 +2984,19 @@ def phase_trainer_cuda_cpu(root: str) -> None:
     from repro_torch.train import FaultTolerantTrainer
     from repro_torch.tree import tree_map
 
-    cfg = get("llama3.2-1b").reduced()
+    cfg = get(arch).reduced()
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    rtol = LOSS_RTOL_F32 if cfg.dtype == "float32" else LOSS_RTOL_BF16
     shape = InputShape("t", 64, 4, "train")
     plat = PlatformConfig(mu_ind=300.0, c=30.0, cp=10.0, d=5.0, r=15.0,
                           recall=0.85, precision=0.82)
     trace = make_event_trace(Exponential(1.0), 300.0, 0.85, 0.82,
                              horizon=1e5, rng=np.random.default_rng(3))
     trainers = {device: FaultTolerantTrainer(
-        cfg, shape, plat, workdir=os.path.join(root, device), step_time=10.0,
-        trace=trace, seed=0, device=device) for device in ("cuda", "cpu")}
+        cfg, shape, plat, workdir=os.path.join(root, f"{arch}-{device}"),
+        step_time=10.0, trace=trace, seed=0, device=device)
+        for device in ("cuda", "cpu")}
     trainers["cpu"].state = tree_map(lambda t: t.cpu(),
                                      trainers["cuda"].state)
     runs, restored = {}, {}
@@ -2976,26 +3008,29 @@ def phase_trainer_cuda_cpu(root: str) -> None:
     for f in dataclasses.fields(gpu):
         if f.name != "final_loss" \
                 and getattr(gpu, f.name) != getattr(cpu, f.name):
-            raise AssertionError(f"reduced trainer: {f.name} CUDA "
+            raise AssertionError(f"reduced {arch} trainer: {f.name} CUDA "
                                  f"{getattr(gpu, f.name)!r} != CPU "
                                  f"{getattr(cpu, f.name)!r}")
     if not any(kind == "delta" for _, kind in restored["cuda"]):
-        raise AssertionError(f"reduced trainer restored no delta: "
+        raise AssertionError(f"reduced {arch} trainer restored no delta: "
                              f"{restored['cuda']}")
     if restored["cuda"] != restored["cpu"]:
-        raise AssertionError(f"reduced trainer restored {restored['cuda']} "
-                             f"on CUDA, {restored['cpu']} on the CPU")
+        raise AssertionError(f"reduced {arch} trainer restored "
+                             f"{restored['cuda']} on CUDA, "
+                             f"{restored['cpu']} on the CPU")
     rel = abs(gpu.final_loss - cpu.final_loss) / abs(cpu.final_loss)
-    if not (math.isfinite(gpu.final_loss) and rel <= LOSS_RTOL_BF16):
-        raise AssertionError(f"reduced trainer final loss CUDA "
+    if not (math.isfinite(gpu.final_loss) and rel <= rtol):
+        raise AssertionError(f"reduced {arch} trainer final loss CUDA "
                              f"{gpu.final_loss} vs CPU {cpu.final_loss} "
-                             f"(rel {rel:.3e} > {LOSS_RTOL_BF16})")
-    log(f"[cuda-cpu] {cfg.name}, 30 steps: every TrainerStats counter and "
-        f"virtual time CUDA == CPU ({gpu.n_faults} faults, "
-        f"{gpu.n_proactive} proactive, {gpu.n_periodic} periodic; restores "
-        f"of (step, kind) {restored['cuda']} on both); final loss "
+                             f"(rel {rel:.3e} > {rtol})")
+    log(f"[cuda-cpu] {cfg.name} ({cfg.dtype}), 30 steps: every "
+        f"TrainerStats counter and virtual time CUDA == CPU ({gpu.n_faults} "
+        f"faults, {gpu.n_proactive} proactive, {gpu.n_periodic} periodic; "
+        f"restores of (step, kind) {restored['cuda']} on both); final loss "
         f"{gpu.final_loss!r} vs {cpu.final_loss!r} (rel {rel:.2e}, limit "
-        f"{LOSS_RTOL_BF16}); cuda {t_gpu:.2f} s, cpu {t_cpu:.2f} s")
+        f"{rtol}); cuda {t_gpu:.2f} s, cpu {t_cpu:.2f} s")
+    return {"rel": rel, "restores": restored["cuda"], "cuda_s": t_gpu,
+            "cpu_s": t_cpu}
 
 
 def _record_restores(mgr) -> list:
@@ -4772,12 +4807,13 @@ LAUNCH_BUDGET_S = 90.0      # the phase's time budget on the card
 LAUNCH_PROMPT, LAUNCH_NEW = 512, 16
 LAUNCH_CPU_STEPS = 2        # (a) the reduced m = 2 step, CUDA against CPU
 # (b) on the fake production meshes, two CLI processes side by side: every
-# arch at train_4k and decode_32k on 16x16 (6 worker processes), and the
-# dense decoders at decode_32k on 2x16x16 (one; the full grid runs
-# through the CLI: launch/dryrun.py).
+# arch at train_4k and decode_32k on 16x16 (7 worker processes: with every
+# row traced to the end the phase took 70.8-82.7 s on 6), and the dense
+# decoders at decode_32k on 2x16x16 (one; the full grid runs through the
+# CLI: launch/dryrun.py).  No row may be an error.
 DENSE_ARCHS = ("llama3-405b", "internlm2-20b", "tinyllama-1.1b",
                "llama3.2-1b")
-DRYRUN_RUNS = (("single", "all", "train_4k,decode_32k", 6),
+DRYRUN_RUNS = (("single", "all", "train_4k,decode_32k", 7),
                ("multi", ",".join(DENSE_ARCHS), "decode_32k", 1))
 
 
@@ -4970,9 +5006,11 @@ def _launch_steps(workdir: str) -> dict:
 
 
 def _check_dryrun(rows: list) -> dict:
-    """(b)'s rows: one for every pair asked for, every dense decoder ok,
-    every error naming its op, every ok row's figures finite."""
+    """(b)'s rows: one for every pair asked for, none an error, every ok
+    row's figures finite."""
     import math
+
+    import torch
     from repro_torch.configs import REGISTRY
 
     want = {(a, s, "16x16") for a in REGISTRY
@@ -4983,18 +5021,19 @@ def _check_dryrun(rows: list) -> dict:
         raise AssertionError(f"dry run: rows {sorted(got ^ want)} missing "
                              f"or extra")
     counts = {"ok": 0, "error": 0, "skipped": 0}
-    for r in sorted(rows, key=lambda r: (r["mesh"], r["arch"], r["shape"])):
+    for r in rows:
         counts[r["status"]] += 1
+    log(f"[dryrun] torch {torch.__version__}: {counts['ok']} ok, "
+        f"{counts['error']} error, {counts['skipped']} skipped of "
+        f"{len(rows)} rows")
+    for r in sorted(rows, key=lambda r: (r["mesh"], r["arch"], r["shape"])):
         head = f"[dryrun] {r['arch']} x {r['shape']} on {r['mesh']}"
         if r["status"] == "skipped":
             log(f"{head}: skipped ({r['reason']})")
             continue
         if r["status"] == "error":
-            if not r.get("op") or r["arch"] in DENSE_ARCHS:
-                raise AssertionError(f"{head}: {r['error']}")
-            log(f"{head}: error at {r['op']} ({r['where']}), "
-                f"{r['compile_s']} s")
-            continue
+            raise AssertionError(f"{head}: {r['op']} at {r['where']}: "
+                                 f"{r['error']}")
         terms = (r["bytes_per_device"], r["t_compute_s"], r["t_memory_s"],
                  r["t_collective_s"])
         if not all(math.isfinite(v) and v > 0 for v in terms):
@@ -5043,6 +5082,210 @@ def phase_launch() -> dict:
         raise AssertionError(f"phase 17 took {out['phase_s']:.1f} s, past "
                              f"its {LAUNCH_BUDGET_S:.0f} s budget")
     return out
+
+
+# -- the families' trainer (ROADMAP A26) ---------------------------------------
+
+TRAIN_BUDGET_S = 150.0      # phase 18's time budget on the card
+# The families' trainer at their published widths, in this order; a depth
+# cut where the train state and a step's new state do not fit one card.
+TRAIN_FAMILIES = ("recurrentgemma-2b", "xlstm-125m", "hubert-xlarge",
+                  "qwen2-moe-a2.7b")
+TRAIN_LAYERS = {"qwen2-moe-a2.7b": 4}
+# (seq, batch): the trainer's shape.  hubert-xlarge takes phase 15's 2,048
+# frames but one row, not 8: the unsharded step keeps every layer's
+# activations (the plain attention's scores most of them), and 8 rows ran
+# the card out of memory in the forward (H100 80GB HBM3, 700 W).  recurrentgemma-2b's RG-LRU state grows without bound
+# (Queue C R2): at 128 tokens if its first loss is finite, else 64.
+TRAIN_SHAPES = {"hubert-xlarge": (2048, 1)}
+R2_FALLBACK_SEQ = 64
+TRAIN_STEPS = 3             # the first is the warm-up
+# The ckpt_delta kernels are timed over the largest fp32 moment leaves of
+# the family's m tree up to this many elements (at least one leaf).
+CKPT_TIMED_ELEMS = 1 << 29
+# The reduced loops CUDA vs CPU, held in float32 at the float32 limit
+# where bf16 rounding alone crosses LOSS_RTOL_BF16 over the 30 steps:
+# qwen2-moe-a2.7b, whose router's near-ties flip with the summation order
+# (on the CPU already with its thread count), recurrentgemma-2b, whose
+# RG-LRU grows every difference token by token (a >= 1, Queue C R2; CUDA
+# 3.0488 vs CPU 3.0628 in bf16, 4.5e-3, H100 80GB HBM3, 700 W), and
+# xlstm-125m, whose exponential gates do the same.
+TRAIN_CUDA_CPU_DTYPE = {"qwen2-moe-a2.7b": "float32",
+                        "recurrentgemma-2b": "float32",
+                        "xlstm-125m": "float32"}
+LOSS_RTOL_F32 = 1e-4
+
+
+def _family_train_config(arch: str):
+    from repro_torch.configs import get
+    cfg = get(arch)
+    if arch in TRAIN_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS[arch])
+    return cfg
+
+
+def _family_trainer(arch: str, workdir: str, seq: int, batch: int):
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.train import cli_platform
+    from repro_torch.train import FaultTolerantTrainer
+    return FaultTolerantTrainer(
+        _family_train_config(arch), InputShape("phase18", seq, batch,
+                                               "train"),
+        cli_platform(STEP_TIME, MTBF), workdir=workdir, step_time=STEP_TIME)
+
+
+def _first_loss(tr) -> float:
+    import torch
+    from repro_torch.models.model import loss_fn
+    with torch.no_grad():
+        return float(loss_fn(tr.cfg, tr.state["params"],
+                             tr.data.batch_at(0))[1]["loss"])
+
+
+def _moment_leaves(opt: dict) -> tuple[list, list]:
+    """(names, tensors) of the fp32 AdamW-moment leaves, m then v."""
+    from repro_torch.tree import flatten, leaf_names
+    names, leaves = [], []
+    for tree in ("m", "v"):
+        for name, t in zip(leaf_names(opt[tree]), flatten(opt[tree])):
+            names.append(f"['{tree}']{name}")
+            leaves.append(t)
+    return names, leaves
+
+
+def _family_ckpt(names: list, cur: list, base: list, errs: dict) -> dict:
+    """Both ckpt_delta kernels on every fp32 moment leaf of a family
+    against its value one step earlier: each launch ``==`` its plain
+    version on the bits (smallest leaves first, each pair freed once
+    held), then both timed over the largest m leaves beside the bytes
+    bound."""
+    from repro_torch.kernels import ckpt_delta as cd
+
+    m_order = sorted((i for i, n in enumerate(names) if n.startswith("['m']")),
+                     key=lambda i: -cur[i].numel())
+    timed, n_timed = [], 0
+    for i in m_order:
+        if timed and n_timed + cur[i].numel() > CKPT_TIMED_ELEMS:
+            break
+        timed.append(i)
+        n_timed += cur[i].numel()
+    odd = [names[i] for i in range(len(cur)) if cur[i].numel() % cd.BLOCK]
+    cd.quantize_delta.launches = cd.dequantize_delta.launches = 0
+    n_elems = 0
+    for i in sorted(range(len(cur)), key=lambda i: cur[i].numel()):
+        _check_ckpt_leaf(cur[i], base[i], names[i], errs)
+        n_elems += cur[i].numel()
+        if i not in timed:
+            cur[i] = base[i] = None
+    launches = {"quantize_delta": cd.quantize_delta.launches,
+                "dequantize_delta": cd.dequantize_delta.launches}
+    if launches != {"quantize_delta": len(cur),
+                    "dequantize_delta": len(cur)}:
+        raise AssertionError(f"ckpt_delta launches {launches} over "
+                             f"{len(cur)} leaves")
+    log(f"[train18]   ckpt_delta: quantize/dequantize kernel == plain on "
+        f"all {len(cur)} fp32 moment leaves ({n_elems} elements; against "
+        f"the moments one step earlier), {launches}; leaves whose size is "
+        f"not a multiple of {cd.BLOCK} (the padded tail block): {odd}")
+    timing = _time_ckpt_kernels([(cur[i], base[i]) for i in timed])
+    cd.quantize_delta.launches = launches["quantize_delta"]
+    cd.dequantize_delta.launches = launches["dequantize_delta"]
+    return {"launches": launches, "timing": timing, "odd": odd,
+            "timed_leaves": [names[i] for i in timed]}
+
+
+def _family_train_cell(arch: str, root: str, errs: dict) -> dict:
+    """A family's trainer at its published widths: the trainer's own
+    steps (finite losses, the step counter advancing), ms a step, the
+    state's bytes and the peak device memory; then the ckpt_delta kernels
+    on its fp32 moment leaves."""
+    import math
+
+    import torch
+    from repro_torch.ckpt.manager import state_bytes
+    from repro_torch.train.loop import TrainerStats
+    from repro_torch.tree import flatten
+
+    seq, batch = TRAIN_SHAPES.get(arch, (SEQ, BATCH))
+    workdir = os.path.join(root, arch)
+    _free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = _family_trainer(arch, workdir, seq, batch)
+    first = _first_loss(tr)
+    note = ""
+    if not math.isfinite(first) and arch == "recurrentgemma-2b":
+        note = (f" (loss {first!r} at {seq} tokens: R2, so "
+                f"{R2_FALLBACK_SEQ})")
+        del tr
+        _free_cuda()
+        seq = R2_FALLBACK_SEQ
+        tr = _family_trainer(arch, workdir, seq, batch)
+        first = _first_loss(tr)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cfg = tr.cfg
+    nbytes = state_bytes(tr.state)
+    n_params = sum(t.numel() for t in flatten(tr.state["params"]))
+    stats = TrainerStats()
+    step_s, losses, base = [], [first], None
+    for i in range(TRAIN_STEPS):
+        if i == TRAIN_STEPS - 1:
+            base = _moment_leaves(tr.state["opt"])[1]
+        t0 = time.perf_counter()
+        metrics = tr._do_step(stats)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        if not math.isfinite(losses[-1]):
+            raise AssertionError(f"{arch}: loss {losses[-1]} at step {i}")
+        if int(tr.state["data_step"]) != i + 1:
+            raise AssertionError(f"{arch}: the step counter is at "
+                                 f"{int(tr.state['data_step'])} after "
+                                 f"{i + 1} steps")
+    peak = torch.cuda.max_memory_allocated()
+    steady = min(step_s[1:])
+    from repro_torch.configs import get
+    published = get(arch).n_layers
+    depth = f"{cfg.n_layers}" + (f" of {published}"
+                                 if cfg.n_layers != published else "")
+    log(f"[train18] {arch}: {depth} layers at published widths (d "
+        f"{cfg.d_model}), {n_params} params, train state {nbytes} bytes; "
+        f"seq {seq} x batch {batch}{note}; built in {build_s:.2f} s; steps "
+        f"(s) {[round(t, 4) for t in step_s]}, steady {steady * 1e3:.3f} ms "
+        f"a step, {seq * batch / steady:.1f} tokens/s; losses {losses}; "
+        f"peak device memory {peak / 1e9:.3f} GB")
+    names, cur = _moment_leaves(tr.state["opt"])
+    del tr, metrics, stats
+    _free_cuda()
+    ckpt = _family_ckpt(names, cur, base, errs)
+    del cur, base
+    _free_cuda()
+    return {"layers": cfg.n_layers, "params": n_params, "state_bytes": nbytes,
+            "seq": seq, "batch": batch, "step_ms": steady * 1e3,
+            "peak_bytes": peak, "losses": losses, "ckpt": ckpt}
+
+
+def phase_families_trainer(root: str, errs: dict) -> dict:
+    """Phase 18: the families' trainer (ROADMAP A26) at published widths,
+    then each family's reduced fault-tolerant loop CUDA against the CPU."""
+    smi = _smi()
+    t_start = time.perf_counter()
+    cells = {arch: _family_train_cell(arch, root, errs)
+             for arch in TRAIN_FAMILIES}
+    if not any(c["ckpt"]["odd"] for c in cells.values()):
+        raise AssertionError("no leaf exercised the padded tail block")
+    full_s = time.perf_counter() - t_start
+    for arch in TRAIN_FAMILIES:
+        cells[arch]["cuda_cpu"] = phase_trainer_cuda_cpu(
+            root, arch, TRAIN_CUDA_CPU_DTYPE.get(arch))
+    phase_s = time.perf_counter() - t_start
+    log(f"[train18] phase 18 on {smi}: {phase_s:.1f} s (budget "
+        f"{TRAIN_BUDGET_S:.0f} s; full width {full_s:.1f} s)")
+    if phase_s > TRAIN_BUDGET_S:
+        raise AssertionError(f"phase 18 took {phase_s:.1f} s, past its "
+                             f"{TRAIN_BUDGET_S:.0f} s budget")
+    return cells
 
 
 def main() -> int:
@@ -5105,6 +5348,10 @@ def _main(t_start: float, device: dict, children: list) -> int:
         f"{time.perf_counter() - t_start:.1f} s")
     phase_launch()
     log(f"[done] launch phase {time.perf_counter() - t_start:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train18_") as root:
+        families_train = phase_families_trainer(root, errs)
+    log(f"[done] families' trainer phase "
+        f"{time.perf_counter() - t_start:.1f} s")
     finish_cpu_rows(children, experiments["cuda_rows"])
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     kernels = [{
@@ -5137,7 +5384,11 @@ def _main(t_start: float, device: dict, children: list) -> int:
             "max_abs_err": errs[name], **trainer["timing"][name],
             "library_ms": None,
             "examples_launches": {p: store[f"{p}_launches"][name]
-                                  for p in ("phase1", "phase2")}})
+                                  for p in ("phase1", "phase2")},
+            "families_train": {
+                arch: {"launches": c["ckpt"]["launches"][name],
+                       **c["ckpt"]["timing"][name]}
+                for arch, c in families_train.items()}})
     for name, replaces in (("flash_attention",
                             "src/repro/kernels/flash_attention.py:81"),
                            ("decode_attention",

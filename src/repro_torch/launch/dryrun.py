@@ -36,6 +36,7 @@ from repro_torch.launch import hlo
 __all__ = ["failing_op", "main", "model_flops", "run_pair"]
 
 MESHES = {"16x16": False, "2x16x16": True}
+_KIND_ORDER = {"train": 0, "prefill": 1, "decode": 2}
 
 
 def model_flops(cfg, shape) -> float:
@@ -239,9 +240,12 @@ def main(argv: list[str] | None = None) -> int:
             results = json.load(f)
     done = {(r["arch"], r["shape"], r["mesh"], r.get("tag"))
             for r in results}
-    tasks = [(a, s, m, overrides, args.rules, args.tag)
-             for m in meshes for a in archs for s in shapes
-             if (a, s, m, args.tag) not in done]
+    # The longest traces first (a train step, then a prefill, then a
+    # decode step), so that the last pair a worker takes is a short one.
+    tasks = sorted(((a, s, m, overrides, args.rules, args.tag)
+                    for m in meshes for a in archs for s in shapes
+                    if (a, s, m, args.tag) not in done),
+                   key=lambda t: _KIND_ORDER[SHAPES[t[1]].kind])
 
     def save(row: dict) -> None:
         print(_show(row), flush=True)

@@ -8,7 +8,10 @@ with :class:`StepCounter`, a ``FakeTensorMode`` that sees every op DTensor
 runs on one device's *local* shards, and counts there, per device:
 
 * FLOPs: the matrix products (``mm``, ``bmm``, ...) by torch's own flop
-  formulas (``torch.utils.flop_counter``); elementwise work is not counted;
+  formulas (``torch.utils.flop_counter``), and the recurrent products of
+  the sLSTM's time loop, which a trace sees as one op each way
+  (``models/xlstm.py``, as XLA sees the reference's ``lax.scan``);
+  elementwise work is not counted;
 * bytes accessed: each op's inputs read once and outputs written once,
   for every op that is not a view, a factory of uninitialised memory or a
   collective (what the eager ops would move, with no fusion);
@@ -116,10 +119,27 @@ def _is_view(func) -> bool:
                for r in func._schema.returns)
 
 
-def _flop_formula(packet):
+def _scan_flops(wx, r, *args, out_val=None) -> int:
+    """The sLSTM scan's recurrent products (``models/xlstm.py``): T
+    tokens of (B, H, hd) x (4, H, hd, hd)."""
+    b, t = wx.shape[:2]
+    return 2 * b * t * r.shape[0] * r.shape[1] * r.shape[2] * r.shape[3]
+
+
+# The port's own ops a trace sees whole: FLOPs by the products inside.
+_PORT_FLOPS = {
+    "slstm_scan": _scan_flops,
+    # d(h) and d(r) of each product.
+    "slstm_scan_backward": lambda *a, **k: 2 * _scan_flops(*a, **k),
+}
+
+
+def _flop_formula(func):
     from torch.utils.flop_counter import flop_registry
 
-    return flop_registry.get(packet)
+    if func.namespace == "repro_torch":
+        return _PORT_FLOPS[func._opname]
+    return flop_registry.get(func._overloadpacket)
 
 
 class StepCounter:
@@ -193,7 +213,7 @@ class StepCounter:
         if func.namespace == "_c10d_functional":
             self.collectives.append((func._opname, out_bytes))
             return
-        formula = _flop_formula(func._overloadpacket)
+        formula = _flop_formula(func)
         if formula is not None:
             self.flops += formula(*args, **kwargs, out_val=out)
         if not outs or _is_view(func) or func._opname in _NO_BYTES:

@@ -31,11 +31,11 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..parallel.sharding import constrain, split_dim
+from ..parallel.sharding import constrain, per_shard, split_dim
 
 __all__ = ["NEG_INF", "apply_rope", "chunked_attention", "decode_attention",
-           "dense_init", "mrope_angles", "norm_init", "rms_norm",
-           "rope_angles", "swiglu", "swiglu_axes", "swiglu_init"]
+           "dense_init", "log_sigmoid", "mrope_angles", "norm_init",
+           "rms_norm", "rope_angles", "swiglu", "swiglu_axes", "swiglu_init"]
 
 NEG_INF = -1e30
 
@@ -63,6 +63,14 @@ def norm_init(dim: int, dtype: torch.dtype, device: torch.device, *,
 # ---------------------------------------------------------------------------
 # RMSNorm
 # ---------------------------------------------------------------------------
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``F.logsigmoid``; on a DTensor shard by shard (an elementwise op,
+    so each device's shard is its own: DTensor has no rule for
+    ``aten.log_sigmoid_backward``), its bits and its backward's the plain
+    op's."""
+    return per_shard(F.logsigmoid, x, dims=tuple(range(x.dim())))
+
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:

@@ -25,12 +25,13 @@ takes the first k of a stable descending sort, which does.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 
-from ..parallel.sharding import constrain
+from ..parallel.sharding import constrain, per_shard
 from .layers import dense_init, swiglu, swiglu_axes, swiglu_init
 
 __all__ = ["moe_apply", "moe_axes", "moe_init", "router_aux_loss"]
@@ -83,15 +84,18 @@ def router_aux_loss(gates: torch.Tensor, top_idx: torch.Tensor,
 
     gates: (T, E) softmax probabilities; top_idx: (T, k) selected experts.
     """
+    experts = torch.arange(n_experts, device=top_idx.device)
+    counts = (top_idx.reshape(-1)[:, None] == experts).sum(dim=0)
+    return _aux_loss(gates, counts, top_idx.numel(), n_experts)
+
+
+def _aux_loss(gates: torch.Tensor, counts: torch.Tensor, n_assigned: int,
+              n_experts: int) -> torch.Tensor:
+    """:func:`router_aux_loss` from the experts' assignment ``counts``:
+    integers, so f_e is exact in float32 whatever order summed them (and,
+    unlike bincount, no read-back to the host on CUDA)."""
     pe = gates.mean(dim=0)
-    # Counts by scatter-add of ones: exact in float32 at any order, and,
-    # unlike bincount, no read-back to the host on CUDA.
-    flat = top_idx.reshape(-1)
-    fe = torch.zeros((n_experts,), dtype=torch.float32,
-                     device=gates.device).scatter_add_(
-        0, flat, torch.ones(flat.shape, dtype=torch.float32,
-                            device=gates.device))
-    fe = fe / max(1.0, float(top_idx.numel()))
+    fe = counts.float() / max(1.0, float(n_assigned))
     return n_experts * torch.sum(fe * pe)
 
 
@@ -102,12 +106,82 @@ def _top_k(gates: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
+def _dispatch(logits: torch.Tensor, xg: torch.Tensor, *, top_k: int,
+              n_experts: int, n_phys: int, capacity: int):
+    """Route the groups' tokens and scatter them into their experts'
+    buckets.  logits (G, Tl, E) float32, xg (G, Tl, d).  Every group is
+    independent of the others, so this runs on each device's groups.
+
+    Returns the gates (G, Tl, E), the experts' assignment counts per group
+    (G, n_phys), the ``(G, n_phys, C+1, d)`` buffer, and each assignment's
+    expert, slot, kept flag and weight (G, Tl k)."""
+    g, tl, d = xg.shape
+    gates = torch.softmax(logits, dim=-1)
+    top_w, top_idx = _top_k(gates, top_k)                     # (G, Tl, k)
+    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+
+    ts_l = tl * top_k
+    flat_e = top_idx.reshape(g, ts_l)                         # (G, TSl)
+    flat_w = top_w.reshape(g, ts_l).to(xg.dtype)
+
+    # Position of each assignment in its (group, expert) bucket: the count
+    # of the group's earlier assignments to the same expert (a comparison,
+    # not one_hot, which reads the indices back to the host on CUDA).
+    experts = torch.arange(n_phys, device=xg.device)
+    onehot = (flat_e[..., None] == experts).long()            # (G, TSl, E)
+    pos = torch.gather(torch.cumsum(onehot, dim=1), 2,
+                       flat_e[..., None])[..., 0] - 1
+    keep = pos < capacity
+    safe_pos = torch.where(keep, pos, capacity)               # overflow slot
+
+    upd = xg[:, :, None, :].expand(g, tl, top_k, d).reshape(g, ts_l, d)
+    upd = torch.where(keep[..., None], upd, torch.zeros((), dtype=xg.dtype,
+                                                        device=xg.device))
+    # Scatter into (G, E, C+1, d); slot `capacity` takes the drops (zeros).
+    # Kept assignments have distinct slots, so each is written once.
+    rows = torch.arange(g, device=xg.device)[:, None].expand(g, ts_l)
+    buf = torch.zeros((g, n_phys, capacity + 1, d), dtype=xg.dtype,
+                      device=xg.device)
+    buf = buf.index_put((rows, flat_e, safe_pos), upd, accumulate=True)
+    return (gates, onehot.sum(dim=1), buf, flat_e, safe_pos, keep, flat_w)
+
+
+def _experts(buf: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+             w_down: torch.Tensor) -> torch.Tensor:
+    """Each expert's SwiGLU on its bucket: (G, E, C+1, d) x (E, d, f)."""
+    gate = F.silu(torch.einsum("gecd,edf->gecf", buf, w_gate))
+    up = torch.einsum("gecd,edf->gecf", buf, w_up)
+    return torch.einsum("gecf,efd->gecd", gate * up, w_down)
+
+
+def _combine(out_buf: torch.Tensor, flat_e: torch.Tensor,
+             safe_pos: torch.Tensor, keep: torch.Tensor,
+             flat_w: torch.Tensor, top_k: int) -> torch.Tensor:
+    """Gather each assignment's expert output, weight it and sum over its
+    token's k picks: (G, Tl, d), group by group."""
+    g, ts_l = flat_e.shape
+    rows = torch.arange(g, device=out_buf.device)[:, None].expand(g, ts_l)
+    contrib = out_buf[rows, flat_e, safe_pos]                 # (G, TSl, d)
+    contrib = torch.where(keep[..., None], contrib,
+                          torch.zeros((), dtype=contrib.dtype,
+                                      device=out_buf.device)) \
+        * flat_w[..., None]
+    return contrib.reshape(g, ts_l // top_k, top_k, -1).sum(dim=2)
+
+
 def moe_apply(params: dict, x: torch.Tensor, *, top_k: int,
               capacity_factor: float | None = 1.25,
               n_groups: int = 32) -> tuple[torch.Tensor, torch.Tensor]:
     """Apply the MoE layer. x (..., d) -> (same shape, aux_loss scalar).
 
-    ``capacity_factor=None`` is the dropless capacity (decode)."""
+    ``capacity_factor=None`` is the dropless capacity (decode).
+
+    On DTensors the routing, the dispatch and the combine run on each
+    device's own groups (:func:`per_shard`: the groups carry "batch", so
+    they are local by construction, as under the reference's ``vmap``),
+    and only the expert products between the two constraints that carry
+    the all-to-all see the expert-sharded buffer.  The aux loss is the
+    only cross-group term: the gates' mean and the summed counts."""
     orig_shape = x.shape
     d = orig_shape[-1]
     xt = x.reshape(-1, d)                                     # (T, d)
@@ -118,55 +192,32 @@ def moe_apply(params: dict, x: torch.Tensor, *, top_k: int,
     g = math.gcd(t, max(1, n_groups))
     tl = t // g
     xg = constrain(xt.reshape(g, tl, d), ("batch", None, None))
-
-    logits = xg.float() @ params["router"]                    # (G, Tl, E)
-    gates = torch.softmax(logits, dim=-1)
-    top_w, top_idx = _top_k(gates, top_k)                     # (G, Tl, k)
-    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
-    aux = router_aux_loss(gates.reshape(t, n_experts),
-                          top_idx.reshape(t, top_k), n_experts)
+    logits = constrain(xg.float() @ params["router"],        # (G, Tl, E)
+                       ("batch", None, None))
 
     ts_l = tl * top_k
-    flat_e = top_idx.reshape(g, ts_l)                         # (G, TSl)
-    flat_w = top_w.reshape(g, ts_l).to(x.dtype)
     if capacity_factor is None:
         capacity = ts_l
     else:
         capacity = max(1, int(math.ceil(ts_l / n_experts * capacity_factor)))
+    gates, counts, buf, flat_e, safe_pos, keep, flat_w = per_shard(
+        functools.partial(_dispatch, top_k=top_k, n_experts=n_experts,
+                          n_phys=n_phys, capacity=capacity),
+        logits, xg, dims=(0,))
+    aux = _aux_loss(gates.reshape(t, n_experts), counts.sum(dim=0)[:n_experts],
+                    t * top_k, n_experts)
 
-    # Position of each assignment in its (group, expert) bucket: the count
-    # of the group's earlier assignments to the same expert (a comparison,
-    # not one_hot, which reads the indices back to the host on CUDA).
-    experts = torch.arange(n_phys, device=x.device)
-    onehot = (flat_e[..., None] == experts).long()            # (G, TSl, E)
-    pos = torch.gather(torch.cumsum(onehot, dim=1), 2,
-                       flat_e[..., None])[..., 0] - 1
-    keep = pos < capacity
-    safe_pos = torch.where(keep, pos, capacity)               # overflow slot
-
-    upd = xg[:, :, None, :].expand(g, tl, top_k, d).reshape(g, ts_l, d)
-    upd = torch.where(keep[..., None], upd, torch.zeros((), dtype=x.dtype,
-                                                        device=x.device))
-    # Scatter into (G, E, C+1, d); slot `capacity` takes the drops (zeros).
-    # Kept assignments have distinct slots, so each is written once.
-    rows = torch.arange(g, device=x.device)[:, None].expand(g, ts_l)
-    buf = torch.zeros((g, n_phys, capacity + 1, d), dtype=x.dtype,
-                      device=x.device)
-    buf = buf.index_put((rows, flat_e, safe_pos), upd, accumulate=True)
     # The MoE all-to-all: the expert axis picks up "model" (moe.py:152).
+    # The expert products run on each device's groups and experts, the
+    # weights gathered over their other axes (FSDP's gather).
     buf = constrain(buf, ("batch", "experts", None, None))
-
     e = params["experts"]
-    gate = F.silu(torch.einsum("gecd,edf->gecf", buf, e["w_gate"]))
-    up = torch.einsum("gecd,edf->gecf", buf, e["w_up"])
-    out_buf = torch.einsum("gecf,efd->gecd", gate * up, e["w_down"])
+    out_buf = per_shard(_experts, buf, e["w_gate"], e["w_up"], e["w_down"],
+                        dims=((0, 1),) + ((None, 0),) * 3)
     out_buf = constrain(out_buf, ("batch", "experts", None, None))
 
-    contrib = out_buf[rows, flat_e, safe_pos]                 # (G, TSl, d)
-    contrib = torch.where(keep[..., None], contrib,
-                          torch.zeros((), dtype=contrib.dtype,
-                                      device=x.device)) * flat_w[..., None]
-    yt = contrib.reshape(g, tl, top_k, d).sum(dim=2)
+    yt = per_shard(functools.partial(_combine, top_k=top_k),
+                   out_buf, flat_e, safe_pos, keep, flat_w, dims=(0,))
     yt = constrain(yt, ("batch", None, None)).reshape(t, d)
 
     if "shared" in params:

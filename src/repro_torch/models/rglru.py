@@ -31,7 +31,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .layers import dense_init
+from ..parallel.sharding import constrain
+from .layers import dense_init, log_sigmoid
 
 __all__ = ["rglru_block_apply", "rglru_block_axes", "rglru_block_init",
            "rglru_decode_step", "rglru_init_state"]
@@ -87,10 +88,13 @@ def _rg_gates(params: dict, y: torch.Tensor
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """(log_a, gated input) of the recurrence, float32."""
     w = params["lambda"].shape[0]
-    rg = y.float() @ params["w_rg"].float() + params["b_rg"]
+    # The product sums over the "lru"-sharded width: reduced before the
+    # bias and the gates' halves are taken (GSPMD's placement of it).
+    rg = y.float() @ params["w_rg"].float()
+    rg = constrain(rg, ("batch",) + (None,) * (rg.dim() - 1)) + params["b_rg"]
     r = torch.sigmoid(rg[..., :w])
     i = torch.sigmoid(rg[..., w:])
-    log_a = _C * r * F.logsigmoid(params["lambda"])
+    log_a = _C * r * log_sigmoid(params["lambda"])
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - torch.square(a), min=1e-12))
     return log_a, beta * i * y.float()
@@ -123,7 +127,7 @@ def rglru_block_apply(params: dict, x: torch.Tensor,
     ``{"h", "conv"}``; ``state`` carries across segments."""
     dtype = x.dtype
     gate = F.gelu(x @ params["w_gate"], approximate="tanh")
-    y = x @ params["w_in"]                                    # (B,S,w)
+    y = constrain(x @ params["w_in"], ("batch", None, "lru"))  # (B,S,w)
     prefix = state["conv"].to(y.dtype) if state else None
     yc = _causal_conv(y, params["conv"], prefix)
     log_a, b = _rg_gates(params, yc)

@@ -344,11 +344,12 @@ def _block_apply_full(cfg: ModelConfig, kind: str, p: dict,
         x = x + _attn_apply(cfg, kind, p["attn"], h, cos, sin)
     else:
         x = x + _recurrent(cfg, kind, p, h)[0]
-    if kind in _XLSTM:
-        return _ffn(cfg, p, x, cfg.capacity_factor)
     # The block's output constraint (transformer.py:236), here also on the
-    # residual between the mixer and the FFN: GSPMD propagates a
-    # constraint backwards through the elementwise add, DTensor does not.
+    # residual between the mixer and the FFN and on the xLSTM blocks'
+    # output: GSPMD propagates a constraint backwards through the
+    # elementwise add and carries the residual's placement from block to
+    # block, DTensor does not (an unpinned xLSTM residual reached the head
+    # with another placement at each depth).
     x = constrain(x, _RESIDUAL)
     x, aux = _ffn(cfg, p, x, cfg.capacity_factor)
     return constrain(x, _RESIDUAL), aux
@@ -426,6 +427,10 @@ def _block_decode(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
         out, entry = rglru_decode_step(p["rec"], h, entry)
         return _ffn(cfg, p, x + out, None)[0], entry
     q, k, v = _qkv(cfg, p["attn"], h, cos, sin)
+    # The decode rules give "model" to the cache's time axis, which the
+    # attention sums over; the one-token query keeps only its batch axis
+    # (the cheap side to gather), so no head dim is sharded there too.
+    q = constrain(q, ("batch", None, None, None))
     kc, vc = entry["k"], entry["v"]
     _scatter_time(kc, k, slot)
     _scatter_time(vc, v, slot)

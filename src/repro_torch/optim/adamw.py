@@ -85,12 +85,20 @@ def global_norm(tree: Any) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
+def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp(
+        _f32(max_norm, norm) / torch.clamp(norm, min=1e-12), max=1.0)
+
+
+def _clipped(g: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return (g.float() * scale).to(g.dtype)
+
+
 def clip_by_global_norm(tree: Any, max_norm: float
                         ) -> tuple[Any, torch.Tensor]:
     norm = global_norm(tree)
-    scale = torch.clamp(
-        _f32(max_norm, norm) / torch.clamp(norm, min=1e-12), max=1.0)
-    leaves = [(g.float() * scale).to(g.dtype) for g in flatten(tree)]
+    scale = _clip_scale(norm, max_norm)
+    leaves = [_clipped(g, scale) for g in flatten(tree)]
     return unflatten(tree, leaves), norm
 
 
@@ -110,8 +118,15 @@ def adamw_init(params: Any, cfg: AdamWConfig) -> dict:
 
 def adamw_update(params: Any, grads: Any, state: dict, cfg: AdamWConfig,
                  ) -> tuple[Any, dict, dict]:
-    """One AdamW step. Returns (new_params, new_state, metrics)."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    """One AdamW step. Returns (new_params, new_state, metrics).
+
+    Each gradient leaf is clipped just before its own update (the
+    operations of :func:`clip_by_global_norm`), so no clipped copy of the
+    whole tree exists, and each leaf's temporaries go as soon as they are
+    used: at full width the new state beside the old one is what fills a
+    card (recurrentgemma-2b's 35.5 GB twice)."""
+    gnorm = global_norm(grads)
+    scale = _clip_scale(gnorm, cfg.clip_norm)
     step = state["step"] + 1
     lr = cfg.lr_at(step)
     b1, b2 = cfg.b1, cfg.b2
@@ -120,16 +135,20 @@ def adamw_update(params: Any, grads: Any, state: dict, cfg: AdamWConfig,
     c2 = 1.0 - torch.pow(_f32(b2, step), step.float())
 
     def upd(p, g, m, v):
-        gf = g.float()
+        gf = _clipped(g, scale).float()
         m32 = m.float() * b1 + (1.0 - b1) * gf
         # v >= 0: a delta-quantized restore (the proactive C_p path) can
         # carry tiny negative noise into v.
         v32 = torch.clamp(v.float(), min=0.0) * b2 \
             + (1.0 - b2) * torch.square(gf)
+        del gf
         mhat = m32 / c1
         vhat = torch.clamp(v32 / c2, min=0.0)
-        delta = mhat / (torch.sqrt(vhat) + cfg.eps) \
-            + cfg.weight_decay * p.float()
+        denom = torch.sqrt(vhat) + cfg.eps
+        del vhat
+        delta = mhat / denom
+        del mhat, denom
+        delta = delta + cfg.weight_decay * p.float()
         newp = (p.float() - lr * delta).to(p.dtype)
         return newp, m32.to(m.dtype), v32.to(v.dtype)
 

@@ -45,7 +45,8 @@ from ..tree import flatten, is_axes, tree_map, unflatten
 __all__ = ["AxisRules", "DECODE_RULES", "DEFAULT_RULES", "PartitionSpec",
            "SEQ_PARALLEL_RULES", "constrain", "is_dtensor",
            "is_spec",
-           "local_shape", "logical_to_spec", "mesh_shape", "per_shard",
+           "local_shape", "logical_to_spec", "merge_dims", "mesh_shape",
+           "per_shard",
            "placements", "replicate_dims", "sharded_zeros",
            "shard_batch_spec", "spec_tree", "split_dim", "use_rules"]
 
@@ -254,6 +255,31 @@ def split_dim(x: torch.Tensor, dim: int, sizes: tuple[int, ...]
     return x.reshape(x.shape[:dim] + tuple(sizes) + x.shape[dim + 1:])
 
 
+def merge_dims(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """``x`` with its dims ``dim`` .. ``dim + n - 1`` merged into one, the
+    inverse of :func:`split_dim`.  A plain tensor is reshaped; on a
+    DTensor the backward splits the gradient through :func:`split_dim`
+    (a reshape's own backward cannot split a gradient sharded wider than
+    the first part)."""
+    dim %= x.dim()
+    if not is_dtensor(x):
+        return x.reshape(x.shape[:dim] + (-1,) + x.shape[dim + n:])
+    return _Merge.apply(x, dim, tuple(x.shape[dim:dim + n]))
+
+
+class _Merge(torch.autograd.Function):
+    """:func:`merge_dims` on a DTensor."""
+
+    @staticmethod
+    def forward(ctx, x, dim, sizes):
+        ctx.dim, ctx.sizes = dim, sizes
+        return x.reshape(x.shape[:dim] + (-1,) + x.shape[dim + len(sizes):])
+
+    @staticmethod
+    def backward(ctx, g):
+        return split_dim(g, ctx.dim, ctx.sizes), None, None
+
+
 def replicate_dims(x: torch.Tensor, dims: tuple[int, ...],
                    unless=None) -> torch.Tensor:
     """A DTensor ``x`` with the mesh dims that shard any of ``dims``
@@ -274,39 +300,72 @@ def replicate_dims(x: torch.Tensor, dims: tuple[int, ...],
     return x.redistribute(mesh, target)
 
 
-def per_shard(fn, *args: torch.Tensor, dims: tuple[int, ...]
-              ) -> torch.Tensor:
+def per_shard(fn, *args: torch.Tensor, dims: tuple):
     """``fn(*args)`` run on each device's shards, as ``shard_map`` runs
     it, for a function that is independent along the tensor dims ``dims``
-    of its arguments and its result (attention: batch rows and heads).
+    of its arguments and its results (attention: batch rows and heads;
+    the MoE dispatch: groups; the expert products: groups and experts).
+    ``fn`` returns a tensor or a tuple of tensors.  ``dims`` is one tuple
+    of dims for every argument, or a tuple per argument, aligned with the
+    first's, ``None`` where an argument lacks that dim (an expert weight
+    has no group dim).
 
-    Plain tensors go straight to ``fn``.  DTensor arguments are first
-    redistributed to the first one's placements, kept only where they
-    shard one of ``dims`` and the mesh extent divides that dim of every
-    argument; every other mesh dim is replicated.  The result carries the
-    same placements.  Without this, DTensor partitions the contractions
-    inside ``fn`` op by op, and folding a data-sharded batch dim into a
-    model-sharded head dim makes it gather whole activations."""
+    Plain tensors go straight to ``fn``.  When the first argument is a
+    DTensor, a plain argument is taken as replicated (a zero state, say),
+    and a mesh dim keeps
+    sharding where it shards one of ``dims`` of the first argument and
+    its extent divides that dim of every argument that has it; every
+    other mesh dim is replicated.  Each argument is redistributed to that
+    plan (an argument without the dim is replicated over the mesh dim,
+    and its gradient there is a partial sum: each shard used it on its
+    own rows), and each result carries the first argument's placements.
+    Without this, DTensor partitions the ops inside ``fn`` one by one:
+    folding a data-sharded batch dim into a model-sharded head dim makes
+    it gather whole activations, and some ops (a sort, an accumulating
+    ``index_put``) have no rule at all."""
     if not is_dtensor(args[0]):
         return fn(*args)
-    from torch.distributed.tensor import Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+    per_arg = dims if dims and isinstance(dims[0], tuple) \
+        else (tuple(dims),) * len(args)
     mesh = args[0].device_mesh
     extent: dict[int, int] = {}
     for i, p in enumerate(args[0].placements):
         if isinstance(p, Shard):
             extent[p.dim] = extent.get(p.dim, 1) * mesh.size(i)
-    target = tuple(
-        p if isinstance(p, Shard) and p.dim in dims
-        and all(a.shape[p.dim] % extent[p.dim] == 0 for a in args)
-        else Replicate() for p in args[0].placements)
-    args = tuple(a.redistribute(mesh, target)
-                 if tuple(a.placements) != target else a for a in args)
-    # A list is one output's placements; a tuple would be one per output.
-    return local_map(fn, out_placements=list(target),
-                     in_placements=(list(target),) * len(args),
-                     device_mesh=mesh)(*args)
+    kept: dict[int, int] = {}       # mesh dim -> index into the dims
+    for i, p in enumerate(args[0].placements):
+        if isinstance(p, Shard) and p.dim in per_arg[0]:
+            k = per_arg[0].index(p.dim)
+            if all(ad[k] is None or a.shape[ad[k]] % extent[p.dim] == 0
+                   for a, ad in zip(args, per_arg)):
+                kept[i] = k
+
+    def plan(ad: tuple) -> tuple:
+        return tuple(Shard(ad[kept[i]]) if i in kept and ad[kept[i]]
+                     is not None else Replicate() for i in range(mesh.ndim))
+
+    local = []
+    for a, ad in zip(args, per_arg):
+        target = plan(ad)
+        if not is_dtensor(a):       # the same tensor on every rank
+            a = DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        if tuple(a.placements) != target:
+            a = a.redistribute(mesh, target)
+        grad = tuple(Partial() if i in kept and ad[kept[i]] is None else p
+                     for i, p in enumerate(target))
+        local.append(a.to_local(grad_placements=grad))
+    out = fn(*local)
+    target = plan(per_arg[0])
+
+    def wrap(t: torch.Tensor) -> torch.Tensor:
+        return DTensor.from_local(t, mesh, target, run_check=False)
+
+    if isinstance(out, torch.Tensor):
+        return wrap(out)
+    return tuple(wrap(t) for t in out)
 
 
 def sharded_zeros(tree: Any, axes_tree: Any, mesh: Any) -> Any:

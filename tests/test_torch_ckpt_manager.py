@@ -39,6 +39,9 @@ from repro_torch.ckpt.manager import (DELTA_RATIO_PRIOR,  # noqa: E402
                                       modeled_costs_from_bytes)
 from repro_torch.models.convert import (params_from_numpy,  # noqa: E402
                                         state_to_numpy)
+from repro_torch.configs import get  # noqa: E402
+from repro_torch.models.transformer import init_params  # noqa: E402
+from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
 from repro_torch.tree import flatten, leaf_names, tree_map  # noqa: E402
 
 
@@ -205,6 +208,40 @@ def test_quantized_leaves_match_reference(tmp_path):
         assert sorted(zp.files) == sorted(zr.files) == sorted(
             ["raw_0", "q_1", "s_1", "q_2", "s_2", "raw_3", "q_4", "s_4",
              "raw_5", "__base__"])
+
+
+# The families the trainer runs at full width (chip_smoke.py phase 18) and
+# the VLM, each with its own leaves: fp32 params (the RG-LRU's lambda and
+# gate bias, the MoE router), xLSTM's 48-element gate bias (fp32 but under
+# one 256-element block: raw), hubert-xlarge without an embedding.
+FAMILIES = ("qwen2-moe-a2.7b", "recurrentgemma-2b", "xlstm-125m",
+            "hubert-xlarge", "qwen2-vl-72b")
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_train_states_quantize_like_reference(arch, tmp_path):
+    """A family's reduced train state (its config's dtype): both managers'
+    proactive saves store the same leaves as q_i / s_i and the same as
+    raw_i, by the port's is_quantized."""
+    params = init_params(get(arch).reduced(), seed=0, device="cpu")
+    port = {"params": params, "opt": adamw_init(params, AdamWConfig()),
+            "data_step": torch.tensor(5, dtype=torch.int32)}
+    ref = jax.tree.map(
+        lambda t: jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+        if t.dtype == torch.bfloat16 else jnp.asarray(t.numpy()), port)
+    for mgr, state, d in ((CheckpointManager, port, "p"),
+                          (RefManager, ref, "r")):
+        m = mgr(str(tmp_path / d))
+        m.save(1, state)
+        m.save_proactive(2, state)
+    want = ["__base__"]
+    for i, t in enumerate(flatten(port)):
+        want += [f"q_{i}", f"s_{i}"] if is_quantized(t) else [f"raw_{i}"]
+    with np.load(tmp_path / "p" / "delta_00000002.npz") as zp, \
+            np.load(tmp_path / "r" / "delta_00000002.npz") as zr:
+        assert sorted(zp.files) == sorted(zr.files) == sorted(want)
+    assert any(k.startswith("q_") for k in want)
+    assert any(k.startswith("raw_") and k != "raw_0" for k in want)
 
 
 # -- cross-restore with the reference -----------------------------------------

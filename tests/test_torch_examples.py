@@ -1,4 +1,7 @@
-"""The port's copies of the five examples, run small on the CPU.
+"""The port's copies of the examples, run small on the CPU (the training
+examples and the predictor study's adaptive demo are in
+``tests/test_torch_examples_training.py``, which ``--dist loadfile``
+gives a worker of its own).
 
 * ``quickstart_torch.py``: the analytic numbers of section 1 ``==`` the
   JAX package's functions on the same scenario; the experiment of section
@@ -6,21 +9,16 @@
   reference's ``run_experiment`` on the same spec, row for row; section 3
   trains its 60 steps.
 * ``predictor_study_torch.py``: the analytic plane and both sensitivities
-  ``==`` the reference's functions; the adaptive demo at one trace holds
-  its own asserts (re-plans, the estimator sees the drift).
+  ``==`` the reference's functions.
 * ``trace_timeline_torch.py``: its Perfetto JSON is byte for byte the
   reference example's.
 * ``serving_torch.py``: greedy decoding is deterministic and a sampled
   run differs from it, for all three families.
-* ``fault_tolerant_training_torch.py``: ``flagship_cfg`` is the
-  reference's config; phase 1 (the xLSTM-100M variant at its width, a few
-  steps) and phase 2 hold their own asserts.
 
 Tolerance: none where numbers are compared (the port's host functions are
 bitwise the reference's).
 """
 
-import dataclasses
 import importlib.util
 import sys
 from pathlib import Path
@@ -121,15 +119,6 @@ def test_predictor_study_analytic_plane_matches_reference(capsys):
     assert got["dp"] == (w_at(r0, p0 + eps) - w_at(r0, p0 - eps)) / (2 * eps)
 
 
-def test_predictor_study_adaptive_demo():
-    ps = _load("predictor_study_torch")
-    got = ps.adaptive_demo(device="cpu", n_traces=1)   # asserts inside
-    batch = got["batch"]
-    assert batch.makespan.shape == (1, 1)
-    assert int(batch.n_replans[0, 0]) >= 1
-    assert all(m > 0 for m in got["makespans"])
-
-
 def test_trace_timeline_bytes_match_reference(tmp_path, capsys):
     port = _load("trace_timeline_torch")
     ref = _load("trace_timeline")
@@ -150,34 +139,3 @@ def test_serving_is_deterministic():
         assert res["tokens"].shape == (2, 8), arch
         assert bool((res["logprobs"] <= 0).all()), arch
         assert res["sampled_differs"], arch
-
-
-def test_flagship_cfg_matches_reference():
-    spec = importlib.util.spec_from_file_location(
-        "_example_ft_ref", EXAMPLES / "fault_tolerant_training.py")
-    ref = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(ref)
-    ft = _load("fault_tolerant_training_torch")
-    mine, theirs = ft.flagship_cfg(), ref.flagship_cfg()
-    assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
-    assert (mine.head_dim, mine.remat, mine.d_model, mine.n_layers) \
-        == (224, False, 896, 10)
-    assert mine.param_count() == theirs.param_count()
-
-
-def test_fault_tolerant_training_phase1():
-    ft = _load("fault_tolerant_training_torch")
-    got = ft.phase1(4, device="cpu")                # loss assert inside
-    assert got["stats"].n_steps == 4
-    assert got["stats"].final_loss < got["first_loss"]
-
-
-def test_fault_tolerant_training_phase2():
-    ft = _load("fault_tolerant_training_torch")
-    got = ft.phase2(40, device="cpu")               # waste assert inside
-    assert list(got) == ["Young", "RFO", "OptimalPrediction"]
-    assert all(s.n_faults > 0 and s.n_rollbacks > 0 for s in got.values())
-    # the predictor's path: proactive (delta-quantized) saves
-    assert got["OptimalPrediction"].n_proactive > 0
-    assert got["RFO"].n_proactive == got["Young"].n_proactive == 0
-    assert got["OptimalPrediction"].waste <= got["RFO"].waste + 0.02

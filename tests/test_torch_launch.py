@@ -16,9 +16,11 @@
 * ``RooflineTerms``' math (``tests/test_launch.py:64-72``) and the
   collective tally.
 * A reduced pair traced on a 2x2 fake mesh is an ``ok`` row with
-  collectives; the two-depth extension of the counts ``==`` a trace of
-  every layer and microbatch; a pair DTensor cannot partition names its
-  op.  The fake process groups are made per test and destroyed after it
+  collectives, the MoE, RG-LRU and xLSTM pairs ROADMAP A13.1-A13.4 logged
+  as ``error`` among them, and xLSTM's head splits on a model axis wider
+  than its heads; the two-depth extension of the counts ``==`` a trace
+  of every layer and microbatch; an op DTensor cannot partition is
+  named.  The fake process groups are made per test and destroyed after it
   (``--dist loadfile`` runs other files in the same worker afterwards).
 """
 
@@ -302,14 +304,47 @@ def test_depth_extension_equals_full_trace(kind, seq, batch, m,
     assert short.cost._fields() == full.cost._fields()
 
 
+# The pairs ROADMAP A13.1-A13.4 logged as ``error``, at reduced size: the
+# MoE's routing, dispatch and combine per shard (A13.1), the per-shard
+# log_sigmoid whose backward DTensor has no rule for (A13.2, A13.3).
+@pytest.mark.parametrize("arch,kind,seq", [
+    ("qwen2-moe-a2.7b", "prefill", 32), ("qwen2-moe-a2.7b", "train", 32),
+    ("qwen2-moe-a2.7b", "decode", 32), ("recurrentgemma-2b", "train", 32),
+    ("xlstm-125m", "train", 8)])
+def test_repaired_pair_dry_runs_ok_on_a_2x2_mesh(arch, kind, seq,
+                                                release_group):
+    row = dryrun.run_pair(get(arch).reduced(), InputShape("x", seq, 8, kind),
+                          small_mesh(), "2x2")
+    assert row["status"] == "ok" and row["n_collectives"] > 0
+    assert row["hlo_flops_per_dev"] > 0 and row["coll_bytes_per_dev"] > 0
+
+
+# xlstm-125m's 4 heads split from an up-projection sharded 16 ways at
+# full size (A13.3, A13.4): the reduced model's 4 heads on 8 model ranks.
+@pytest.mark.parametrize("kind", ["prefill", "train"])
+def test_head_split_wider_than_the_heads_dry_runs_ok(kind, release_group):
+    cfg = get("xlstm-125m").reduced()
+    mesh = port_mesh.make_fake_mesh((1, 8), ("data", "model"))
+    assert mesh.size(1) > cfg.n_heads
+    row = dryrun.run_pair(cfg, InputShape("x", 8, 8, kind), mesh, "1x8")
+    assert row["status"] == "ok" and row["n_collectives"] > 0
+
+
+def _count_tokens(ids):
+    """A function of the test's own on an op DTensor has no rule for."""
+    return torch.bincount(ids.reshape(-1))
+
+
 def test_unpartitionable_op_is_named(release_group):
-    cfg = get("qwen2-moe-a2.7b").reduced()
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    ids = distribute_tensor(torch.arange(16).reshape(8, 2) % 5,
+                            small_mesh(), (Shard(0), Replicate()))
     with pytest.raises(Exception) as err:
-        dryrun.run_pair(cfg, InputShape("p", 32, 4, "prefill"),
-                        small_mesh(), "2x2")
+        _count_tokens(ids)
     op, where = dryrun.failing_op(err.value)
-    assert op is not None and "scatter_add" in op
-    assert where is not None and where.startswith("models/moe.py:")
+    assert op is not None and "bincount" in op
+    assert where is None        # no line of the port's models on the way
 
 
 def test_dryrun_cli_rows(tmp_path, release_group):
