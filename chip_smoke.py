@@ -327,21 +327,32 @@ result):
                against 80 GB, the three roofline terms and the dominant
                one.  The phase fails past its 90 s budget.
 18. families' trainer - ``FaultTolerantTrainer``'s own step at published
-               widths for recurrentgemma-2b (26 layers, 3.55 B params,
-               35.5 GB of train state; seq 128 x batch 8, or 64 if its
-               first loss is not finite: Queue C R2), xlstm-125m (12
-               layers), hubert-xlarge (48 layers, 2,048 frames of one
-               row: 8 rows' activations do not fit beside the state) and
-               qwen2-moe-a2.7b (its depth cut to ``TRAIN_LAYERS``, widths
-               kept): ``TRAIN_STEPS`` steps, each loss finite and the step
-               counter advancing, ms a step, tokens/s, the state's bytes
-               and the peak device memory.  Then both ckpt_delta kernels on
-               every fp32 AdamW-moment leaf against its value one step
-               earlier, each launch ``==`` its plain version on the bits
-               (xlstm's 48-element gate bias, not a multiple of the
-               256-element block, among them), and timed over the largest
-               m leaves beside the bytes bound (no checkpoint is written at
-               full width).  Then each family's reduced fault-tolerant
+               widths, under ``cfg.remat`` (one checkpoint region a repeat
+               of the block unit, counted), for recurrentgemma-2b (26
+               layers, 3.55 B params, 35.5 GB of train state; seq 128 x
+               batch 8, or 64 if its first loss is not finite: Queue C
+               R2), xlstm-125m (12 layers), hubert-xlarge (48 layers, 8
+               rows of 2,048 frames, phase 15's shape) and qwen2-moe-a2.7b
+               (its depth cut to ``TRAIN_LAYERS``, widths kept):
+               ``TRAIN_STEPS`` steps, each loss finite and the step
+               counter advancing, ms a step, tokens or frames a second,
+               the state's bytes and the peak device memory beside the
+               card's name and power limit (for recurrentgemma-2b,
+               xlstm-125m and qwen2-moe-a2.7b the peak of the bytes the
+               tensors requested no higher than one step's without remat,
+               run just before in the same phase, by more than 1 MB); and
+               both ckpt_delta kernels on every fp32 AdamW-moment leaf
+               against its value one step earlier, each launch ``==`` its
+               plain version on the bits (xlstm's 48-element gate bias,
+               not a multiple of the 256-element block, among them), and
+               timed over the largest m leaves beside the bytes bound (no
+               checkpoint is written at full width).  Then one reduced
+               train step per family (two repeats of its unit and the
+               longest tail) with remat against the same step without:
+               the metrics and every new parameter and moment ``==`` on
+               the bits, the MoE's included (its accumulating
+               ``index_put`` writes each kept slot once).  Then each
+               family's reduced fault-tolerant
                loop (phase 9's trace and 30 steps: periodic saves, a
                proactive delta save, rollbacks) on CUDA and on the CPU:
                every counter ``==``, the restores' (step, kind) ``==`` with
@@ -5092,14 +5103,29 @@ TRAIN_BUDGET_S = 150.0      # phase 18's time budget on the card
 TRAIN_FAMILIES = ("recurrentgemma-2b", "xlstm-125m", "hubert-xlarge",
                   "qwen2-moe-a2.7b")
 TRAIN_LAYERS = {"qwen2-moe-a2.7b": 4}
-# (seq, batch): the trainer's shape.  hubert-xlarge takes phase 15's 2,048
-# frames but one row, not 8: the unsharded step keeps every layer's
-# activations (the plain attention's scores most of them), and 8 rows ran
-# the card out of memory in the forward (H100 80GB HBM3, 700 W).  recurrentgemma-2b's RG-LRU state grows without bound
+# (seq, batch): the trainer's shape.  hubert-xlarge takes phase 15's 8 rows
+# of 2,048 frames: under cfg.remat the step keeps one unit input a layer,
+# where keeping every layer's activations (the plain attention's scores
+# most of them) ran the card out of memory in the forward (H100 80GB
+# HBM3, 700 W).  recurrentgemma-2b's RG-LRU state grows without bound
 # (Queue C R2): at 128 tokens if its first loss is finite, else 64.
-TRAIN_SHAPES = {"hubert-xlarge": (2048, 1)}
+TRAIN_SHAPES = {"hubert-xlarge": (PROMPT, SERVE_BATCH)}
 R2_FALLBACK_SEQ = 64
 TRAIN_STEPS = 3             # the first is the warm-up
+# The families whose step also runs without remat, one step in the same
+# run; the two peaks compare as the bytes the tensors asked for
+# (``requested_bytes``), since the blocks the caching allocator hands out
+# (``max_memory_allocated``) round by up to a megabyte each, by what the
+# earlier phases left in its cache.  Beside each, the peak the whole
+# script gave it before the train step took remat, for the log (H100
+# 80GB HBM3, 700 W).
+TRAIN_PLAIN_PEAK_GB = {"recurrentgemma-2b": 78.582, "xlstm-125m": 5.261,
+                       "qwen2-moe-a2.7b": 75.995}
+# The step with remat may ask for at most this many bytes more at its peak
+# than the step without: 1 MB, the precision those peaks were recorded to
+# (recurrentgemma-2b's peak, set by the AdamW update, was 16 bytes higher
+# with remat, H100 80GB HBM3, 700 W).
+REMAT_PEAK_SLACK_BYTES = 1_000_000
 # The ckpt_delta kernels are timed over the largest fp32 moment leaves of
 # the family's m tree up to this many elements (at least one leaf).
 CKPT_TIMED_ELEMS = 1 << 29
@@ -5124,14 +5150,105 @@ def _family_train_config(arch: str):
     return cfg
 
 
-def _family_trainer(arch: str, workdir: str, seq: int, batch: int):
+def _family_trainer(arch: str, workdir: str, seq: int, batch: int,
+                    remat: bool = True) -> tuple:
+    """(trainer, seq, note, first loss): the family's trainer at ``seq``,
+    or at R2_FALLBACK_SEQ where recurrentgemma-2b's first loss at ``seq``
+    is not finite (Queue C R2; ``note`` says so)."""
+    import math
+
     from repro_torch.configs.base import InputShape
     from repro_torch.launch.train import cli_platform
     from repro_torch.train import FaultTolerantTrainer
-    return FaultTolerantTrainer(
-        _family_train_config(arch), InputShape("phase18", seq, batch,
-                                               "train"),
-        cli_platform(STEP_TIME, MTBF), workdir=workdir, step_time=STEP_TIME)
+
+    def build(seq):
+        tr = FaultTolerantTrainer(
+            dataclasses.replace(_family_train_config(arch), remat=remat),
+            InputShape("phase18", seq, batch, "train"),
+            cli_platform(STEP_TIME, MTBF), workdir=workdir,
+            step_time=STEP_TIME)
+        return tr, _first_loss(tr)
+
+    tr, first = build(seq)
+    if math.isfinite(first) or arch != "recurrentgemma-2b":
+        return tr, seq, "", first
+    del tr
+    _free_cuda()
+    note = f" (loss {first!r} at {seq} tokens: R2, so {R2_FALLBACK_SEQ})"
+    tr, first = build(R2_FALLBACK_SEQ)
+    return tr, R2_FALLBACK_SEQ, note, first
+
+
+def _requested_peak() -> int:
+    """The peak of the bytes the tensors asked the caching allocator for
+    since the last ``reset_peak_memory_stats``."""
+    import torch
+    return torch.cuda.memory_stats()["requested_bytes.all.peak"]
+
+
+def _count_regions() -> tuple:
+    """Wrap ``transformer.checkpoint`` with a counter of the remat regions
+    it opens: (counter list, the function that undoes the wrap)."""
+    from repro_torch.models import transformer as tf
+    inner, opened = tf.checkpoint, [0]
+
+    def counted(*args, **kwargs):
+        opened[0] += 1
+        return inner(*args, **kwargs)
+
+    tf.checkpoint = counted
+    return opened, lambda: setattr(tf, "checkpoint", inner)
+
+
+def _remat_step_check(arch: str, root: str, opened: list) -> dict:
+    """One reduced train step of ``arch`` on the card (two repeats of its
+    unit and the longest tail) with ``cfg.remat`` against the same step
+    without: the metrics and every new parameter and moment ``==`` on the
+    bits.  The MoE's accumulating ``index_put`` (``models/moe.py:145``)
+    writes each kept slot once and adds zeros for the drops, so the order
+    CUDA adds them in changes no bit."""
+    from repro_torch.configs import get
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.train import cli_platform
+    from repro_torch.train import FaultTolerantTrainer
+    from repro_torch.tree import flatten
+
+    base = get(arch).reduced()
+    n_unit = len(base.block_unit)
+    cfg = dataclasses.replace(base, n_layers=3 * n_unit - 1)
+    out, regions = {}, {}
+    for remat in (True, False):
+        tr = FaultTolerantTrainer(
+            dataclasses.replace(cfg, remat=remat),
+            InputShape("remat", 64, 4, "train"),
+            cli_platform(STEP_TIME, MTBF),
+            workdir=os.path.join(root, f"{arch}-remat-{remat}"),
+            step_time=STEP_TIME)
+        before = opened[0]
+        params, opt, metrics = tr._train_step(
+            tr.state["params"], tr.state["opt"], tr.data.batch_at(0))
+        regions[remat] = opened[0] - before
+        out[remat] = (flatten(tr.state["params"]), flatten(params) +
+                      flatten(opt), metrics)
+        del tr, params, opt
+    if regions != {True: 2, False: 0}:
+        raise AssertionError(f"reduced {arch}: remat regions {regions}, "
+                             f"want 2 with remat and 0 without")
+    (init_a, new_a, met_a), (init_b, new_b, met_b) = out[True], out[False]
+    if not all(map(_bits_equal, init_a, init_b)):
+        raise AssertionError(f"reduced {arch}: the two trainers' initial "
+                             f"parameters differ")
+    loss = float(met_a["loss"]), float(met_b["loss"])
+    if not (all(_bits_equal(met_a[k], met_b[k]) for k in met_b)
+            and all(map(_bits_equal, new_a, new_b))):
+        raise AssertionError(f"reduced {arch}: the step with remat differs "
+                             f"from the step without (loss {loss[0]!r} vs "
+                             f"{loss[1]!r})")
+    log(f"[train18] remat {arch} reduced ({cfg.n_layers} layers, unit "
+        f"{cfg.block_unit}, {cfg.dtype}, 4 x 64), one train step with remat "
+        f"({regions[True]} regions) against it without: == on the bits "
+        f"(metrics, every new parameter and moment); loss {loss[0]!r}")
+    return {"loss": loss[0], "regions": regions[True]}
 
 
 def _first_loss(tr) -> float:
@@ -5194,11 +5311,15 @@ def _family_ckpt(names: list, cur: list, base: list, errs: dict) -> dict:
             "timed_leaves": [names[i] for i in timed]}
 
 
-def _family_train_cell(arch: str, root: str, errs: dict) -> dict:
+def _family_train_cell(arch: str, root: str, errs: dict, smi: str,
+                       opened: list) -> dict:
     """A family's trainer at its published widths: the trainer's own
-    steps (finite losses, the step counter advancing), ms a step, the
-    state's bytes and the peak device memory; then the ckpt_delta kernels
-    on its fp32 moment leaves."""
+    steps (finite losses, the step counter advancing, one remat region a
+    repeat of the unit), ms a step, the state's bytes and the peak device
+    memory (for the families of TRAIN_PLAIN_PEAK_GB, the requested bytes'
+    peak no higher than one step's without remat, built and run just
+    before on the same held memory, by more than REMAT_PEAK_SLACK_BYTES);
+    then the ckpt_delta kernels on its fp32 moment leaves."""
     import math
 
     import torch
@@ -5209,19 +5330,22 @@ def _family_train_cell(arch: str, root: str, errs: dict) -> dict:
     seq, batch = TRAIN_SHAPES.get(arch, (SEQ, BATCH))
     workdir = os.path.join(root, arch)
     _free_cuda()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    tr = _family_trainer(arch, workdir, seq, batch)
-    first = _first_loss(tr)
-    note = ""
-    if not math.isfinite(first) and arch == "recurrentgemma-2b":
-        note = (f" (loss {first!r} at {seq} tokens: R2, so "
-                f"{R2_FALLBACK_SEQ})")
+    held = torch.cuda.memory_allocated()
+    plain_peak, note = None, ""
+    if arch in TRAIN_PLAIN_PEAK_GB:
+        torch.cuda.reset_peak_memory_stats()
+        tr, seq, note, _ = _family_trainer(arch, workdir, seq, batch,
+                                           remat=False)
+        tr._do_step(TrainerStats())
+        torch.cuda.synchronize()
+        plain_peak = (torch.cuda.max_memory_allocated(),
+                      _requested_peak())
         del tr
         _free_cuda()
-        seq = R2_FALLBACK_SEQ
-        tr = _family_trainer(arch, workdir, seq, batch)
-        first = _first_loss(tr)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr, seq, remat_note, first = _family_trainer(arch, workdir, seq, batch)
+    note = note or remat_note
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     cfg = tr.cfg
@@ -5229,13 +5353,18 @@ def _family_train_cell(arch: str, root: str, errs: dict) -> dict:
     n_params = sum(t.numel() for t in flatten(tr.state["params"]))
     stats = TrainerStats()
     step_s, losses, base = [], [first], None
+    regions = cfg.n_layers // len(cfg.block_unit) if cfg.remat else 0
     for i in range(TRAIN_STEPS):
         if i == TRAIN_STEPS - 1:
             base = _moment_leaves(tr.state["opt"])[1]
+        before = opened[0]
         t0 = time.perf_counter()
         metrics = tr._do_step(stats)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
+        if opened[0] - before != regions:
+            raise AssertionError(f"{arch}: {opened[0] - before} remat "
+                                 f"regions in step {i}, want {regions}")
         losses.append(float(metrics["loss"]))
         if not math.isfinite(losses[-1]):
             raise AssertionError(f"{arch}: loss {losses[-1]} at step {i}")
@@ -5243,18 +5372,32 @@ def _family_train_cell(arch: str, root: str, errs: dict) -> dict:
             raise AssertionError(f"{arch}: the step counter is at "
                                  f"{int(tr.state['data_step'])} after "
                                  f"{i + 1} steps")
-    peak = torch.cuda.max_memory_allocated()
+    peak, requested = torch.cuda.max_memory_allocated(), _requested_peak()
     steady = min(step_s[1:])
     from repro_torch.configs import get
     published = get(arch).n_layers
     depth = f"{cfg.n_layers}" + (f" of {published}"
                                  if cfg.n_layers != published else "")
-    log(f"[train18] {arch}: {depth} layers at published widths (d "
-        f"{cfg.d_model}), {n_params} params, train state {nbytes} bytes; "
-        f"seq {seq} x batch {batch}{note}; built in {build_s:.2f} s; steps "
-        f"(s) {[round(t, 4) for t in step_s]}, steady {steady * 1e3:.3f} ms "
-        f"a step, {seq * batch / steady:.1f} tokens/s; losses {losses}; "
-        f"peak device memory {peak / 1e9:.3f} GB")
+    unit = "tokens" if cfg.embed_inputs else "frames"
+    log(f"[train18] {arch} on {smi}: {depth} layers at published widths (d "
+        f"{cfg.d_model}, {cfg.dtype}), {n_params} params, train state "
+        f"{nbytes} bytes; seq {seq} x batch {batch}{note}; remat "
+        f"{cfg.remat} ({regions} regions a step); built in {build_s:.2f} "
+        f"s; steps (s) {[round(t, 4) for t in step_s]}, steady "
+        f"{steady * 1e3:.3f} ms a step, {seq * batch / steady:.1f} "
+        f"{unit}/s; losses {losses}; peak device memory (max_memory_"
+        f"allocated) {peak / 1e9:.3f} GB, {held / 1e9:.3f} GB of it held "
+        f"by the earlier phases, requested bytes' peak {requested}" + (
+            "" if plain_peak is None else
+            f"; one step without remat {plain_peak[0] / 1e9:.3f} GB, "
+            f"requested bytes' peak {plain_peak[1]} (the whole script "
+            f"before the step took remat: {TRAIN_PLAIN_PEAK_GB[arch]} GB)"))
+    if (plain_peak is not None
+            and requested > plain_peak[1] + REMAT_PEAK_SLACK_BYTES):
+        raise AssertionError(f"{arch}: requested bytes' peak {requested} "
+                             f"with remat, past the {plain_peak[1]} "
+                             f"without by more than "
+                             f"{REMAT_PEAK_SLACK_BYTES}")
     names, cur = _moment_leaves(tr.state["opt"])
     del tr, metrics, stats
     _free_cuda()
@@ -5263,19 +5406,29 @@ def _family_train_cell(arch: str, root: str, errs: dict) -> dict:
     _free_cuda()
     return {"layers": cfg.n_layers, "params": n_params, "state_bytes": nbytes,
             "seq": seq, "batch": batch, "step_ms": steady * 1e3,
-            "peak_bytes": peak, "losses": losses, "ckpt": ckpt}
+            "peak_bytes": peak, "requested_peak_bytes": requested,
+            "plain_peak_bytes": plain_peak,
+            "losses": losses, "ckpt": ckpt}
 
 
 def phase_families_trainer(root: str, errs: dict) -> dict:
     """Phase 18: the families' trainer (ROADMAP A26) at published widths,
-    then each family's reduced fault-tolerant loop CUDA against the CPU."""
+    then each family's reduced step with remat against it without, then
+    each family's reduced fault-tolerant loop CUDA against the CPU."""
     smi = _smi()
     t_start = time.perf_counter()
-    cells = {arch: _family_train_cell(arch, root, errs)
-             for arch in TRAIN_FAMILIES}
-    if not any(c["ckpt"]["odd"] for c in cells.values()):
-        raise AssertionError("no leaf exercised the padded tail block")
-    full_s = time.perf_counter() - t_start
+    opened, unwrap = _count_regions()
+    try:
+        cells = {arch: _family_train_cell(arch, root, errs, smi, opened)
+                 for arch in TRAIN_FAMILIES}
+        if not any(c["ckpt"]["odd"] for c in cells.values()):
+            raise AssertionError("no leaf exercised the padded tail block")
+        full_s = time.perf_counter() - t_start
+        for arch in TRAIN_FAMILIES:
+            cells[arch]["remat"] = _remat_step_check(arch, root, opened)
+    finally:
+        unwrap()
+    _free_cuda()
     for arch in TRAIN_FAMILIES:
         cells[arch]["cuda_cpu"] = phase_trainer_cuda_cpu(
             root, arch, TRAIN_CUDA_CPU_DTYPE.get(arch))

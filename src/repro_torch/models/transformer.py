@@ -54,11 +54,14 @@ batch's ``positions_thw`` (B, S, 3), or (pos, pos, pos) without it; a
 decode step places the new token at ``positions_thw`` (B, 3) if given,
 else at (length, length, length), as the reference does.  Encoder-only
 configs (``embed_inputs=False``, bidirectional) have no decode step.
-``cfg.remat`` is ignored on plain tensors: the port keeps every
-activation, which does not change the numbers.  On DTensors (the launch
-layer's sharded steps) the model follows the reference's sharding
-annotations (:func:`repro_torch.parallel.sharding.constrain`), recomputes
-each layer in the backward under ``cfg.remat``, runs attention on each
+Under ``cfg.remat`` a :func:`forward_train` that autograd records runs
+each repeat of the block unit as one checkpoint region, recomputed in the
+backward, and the tail outside, as the reference's ``_scan_over_repeats``
+does, on plain tensors and DTensors alike: the backward keeps each
+unit's input, not its activations, and the numbers do not change.  On
+DTensors (the launch layer's sharded steps) the model follows the
+reference's sharding annotations
+(:func:`repro_torch.parallel.sharding.constrain`), runs attention on each
 device's shards, and builds a sharded prefill cache.
 """
 
@@ -593,24 +596,52 @@ def _layers(cfg: ModelConfig, params: dict, cache: dict | None = None):
                    tail_entries)
 
 
+def _run_layers(cfg: ModelConfig, layers: list, x: torch.Tensor,
+                cos: torch.Tensor, sin: torch.Tensor
+                ) -> tuple[torch.Tensor, list]:
+    """Training-mode apply of ``layers`` ((kind, params) pairs) in order:
+    (x out, each layer's MoE aux loss)."""
+    auxes = []
+    for kind, p in layers:
+        x, layer_aux = _block_apply_full(cfg, kind, p, x, cos, sin)
+        auxes.append(layer_aux)
+    return x, auxes
+
+
 def forward_train(cfg: ModelConfig, params: dict, batch: dict
                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Teacher-forced pass. Returns (logits (B,S,V), moe_aux_loss scalar)."""
+    """Teacher-forced pass. Returns (logits (B,S,V), moe_aux_loss scalar).
+
+    Under ``cfg.remat``, while autograd records, each repeat of
+    ``cfg.block_unit`` runs as one non-reentrant checkpoint region and the
+    tail layers run outside any, as in the reference's
+    ``_scan_over_repeats`` (``transformer.py:443-482``).
+    ``cfg.remat_policy`` ``"default"`` and
+    ``"nothing"`` both keep only a region's inputs and recompute the rest,
+    as ``jax.checkpoint`` does with ``policy=None`` and with
+    ``nothing_saveable``.  The layers' aux losses are added layer after
+    layer, with remat or without.
+    """
     check_supported(cfg)
     x = constrain(_embed(cfg, params, batch), _RESIDUAL)
     positions = torch.arange(x.shape[1], device=x.device)
     cos, sin = _rope_tables(cfg, positions, batch.get("positions_thw"))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    # A sharded pass recomputes each layer in the backward under
-    # cfg.remat, as the reference's scan body does; the unsharded port
-    # keeps every activation (module doc).
-    remat = cfg.remat and is_dtensor(x)
-    for kind, p, _ in _layers(cfg, params):
+    layers = [(kind, p) for kind, p, _ in _layers(cfg, params)]
+    n_unit = len(cfg.block_unit)
+    n_scanned = cfg.n_layers // n_unit * n_unit
+    remat = cfg.remat and torch.is_grad_enabled()
+    for start in range(0, n_scanned, n_unit):
+        unit = layers[start:start + n_unit]
         if remat:
-            x, layer_aux = checkpoint(_block_apply_full, cfg, kind, p, x,
-                                      cos, sin, use_reentrant=False)
+            x, auxes = checkpoint(_run_layers, cfg, unit, x, cos, sin,
+                                  use_reentrant=False)
         else:
-            x, layer_aux = _block_apply_full(cfg, kind, p, x, cos, sin)
+            x, auxes = _run_layers(cfg, unit, x, cos, sin)
+        for layer_aux in auxes:
+            aux = aux + layer_aux
+    x, auxes = _run_layers(cfg, layers[n_scanned:], x, cos, sin)
+    for layer_aux in auxes:
         aux = aux + layer_aux
     return _head(cfg, params, x), aux
 
