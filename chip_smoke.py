@@ -60,6 +60,18 @@ result):
                setup), lanes/s, 64 lanes checked against the CPU, and a
                profiler window for the device's busy share and device
                events per iteration.
+5a. lane split - the lane engine split over a device list: (a) phase 4's
+               study pass (5,200 lanes) unsplit on ``"cuda:0"``, with
+               ``device=["cuda:0"]`` and with ``["cuda:0"] * 4``, each
+               ``==`` phase 4 on every BatchResult field, with 1, 1 and 4
+               lane_loop launches (and shards) per chunk; (b) phase 5's
+               65,536-lane chunk over ``["cuda:0"] * 4``, ``==`` phase 5;
+               (c) with more than one card visible, the study over every
+               card (``device=None`` and a list), ``==`` phase 4 (with one,
+               a line records that it is not run).  Each run's device time
+               (CUDA events around each launch, first to last, per card),
+               wall and lanes/s beside phases 4 and 5, with the card's name
+               and power limit.  The phase fails past its 15 s budget.
 6. timing    - event_step at the main path's shape against its plain
                version, by CUDA events, beside its bytes bound; the timed
                state is checked ``==`` too.  lane_loop_kernel on the
@@ -175,7 +187,11 @@ result):
                2,048, uneven tiles, a window, q_offset and no mask; decode
                over the wrapped, ragged 2,048-slot ring, a short ring and
                an append cache; the first two timed in bf16 beside plain,
-               SDPA and the bound.  Head dim 80 (hubert-xlarge's, flash
+               SDPA and the bound.  Every decode timing (here and in
+               phases 11, 14 and 15) also times SDPA and the kernel by
+               CUDA-graph replay (back-to-back calls captured in one graph,
+               thread-local capture, replays timed by CUDA events), which
+               does not depend on the profiler.  Head dim 80 (hubert-xlarge's, flash
                only): bidirectional at hubert's own (1, 2,048, 16 heads)
                and with uneven tiles, causal with a window, and with
                q_offset.
@@ -882,7 +898,7 @@ def phase_main(study: dict) -> dict:
 def phase_scale() -> dict:
     """65,536 lanes as one chunk on the engine_perf.py big-lane setup;
     returns the chunk's results and its CPU rerun's (phase 6e reads
-    them)."""
+    them), its lane runner and its wall seconds (phase 5a)."""
     import numpy as np
     import torch
     from repro_torch.core.batch import lane_results
@@ -911,7 +927,7 @@ def phase_scale() -> dict:
     prev = set_registry(reg)
     t0 = time.perf_counter()
     result = run(everything)
-    wall = time.perf_counter() - t0
+    wall = big_wall = time.perf_counter() - t0
     set_registry(prev)
     ms = result.makespan[0]
     if not (np.isfinite(ms).all() and (ms > 50000.0).all()):
@@ -948,7 +964,141 @@ def phase_scale() -> dict:
         f"({sum(r[2] for r in rows) / max(iters, 1):.1f} per iteration)")
     for dev_us, key, count in sorted(rows, reverse=True)[:8]:
         log(f"[profile]   {dev_us / 1e3:10.3f} ms  {count:7d}x  {key[:70]}")
-    return {"result": result, "cpu_result": cpu_result}
+    return {"result": result, "cpu_result": cpu_result, "run": run,
+            "wall_s": big_wall}
+
+
+SPLIT_BUDGET_S = 15.0       # phase 5a's time budget on the card
+SPLIT_SHARDS = 4            # the shards of the one-card split
+
+
+def _split_run(fn, devices) -> dict:
+    """``fn(devices)`` with the lane_loop launches counted from 0 and each
+    launch between CUDA events on its own device's stream: the result,
+    the engine's counters, the launches, wall seconds and, per device,
+    the device milliseconds from its first launch's start to its last's
+    end."""
+    import torch
+    import repro_torch.core.batch_torch as bt
+    from repro_torch.kernels.lane_loop import lane_loop
+    from repro_torch.obs.metrics import MetricsRegistry, set_registry
+    events = {}
+
+    def timed(lanes, g, *, cap):
+        dev = lanes.f.device
+        with torch.cuda.device(dev):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            flag = lane_loop(lanes, g, cap=cap)
+            end.record()
+        events.setdefault(str(dev), []).append((start, end))
+        return flag
+
+    timed.launches = 0      # the engine's own count; this one reads 0
+    reg = MetricsRegistry()
+    prev = set_registry(reg)
+    before = lane_loop.launches
+    lane_loop.launches = 0
+    bt.lane_loop = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn(devices)
+        for k in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(k)
+        wall = time.perf_counter() - t0
+    finally:
+        bt.lane_loop = lane_loop
+        set_registry(prev)
+        launches, lane_loop.launches = lane_loop.launches, before
+    device_ms = {dev: ev[0][0].elapsed_time(ev[-1][1])
+                 for dev, ev in events.items()}
+    return {"result": result, "counters": dict(reg.counters),
+            "launches": launches, "wall_s": wall, "device_ms": device_ms}
+
+
+def _split_line(tag: str, run: dict, n_lanes: int, smi: str) -> str:
+    dev = ", ".join(f"{d} {ms:.4f} ms" for d, ms in run["device_ms"].items())
+    c = run["counters"]
+    return (f"[split] {tag}: {c['torch.chunks']} chunk(s), "
+            f"{c['torch.shards']} shard(s), {run['launches']} lane_loop "
+            f"launches ({run['launches'] / c['torch.chunks']:.1f} per "
+            f"chunk); device time (CUDA events, first launch to last) "
+            f"{dev}; wall {run['wall_s']:.4f} s, "
+            f"{n_lanes / run['wall_s']:.1f} lanes/s; on {smi}")
+
+
+def phase_split(study: dict, main_run: dict, scale: dict) -> None:
+    """Phase 5a: the lane engine split over a device list, ``==`` phases 4
+    and 5 on every BatchResult field."""
+    import numpy as np
+    import torch
+    from repro_torch.experiments import candidate_results
+    t_phase = time.perf_counter()
+    smi = _smi()
+    sc = study["sc"]
+    n_lanes = study["n_lanes"]
+
+    def study_pass(devices):
+        return candidate_results(study["traces"], sc.platform, sc.time_base,
+                                 sc.cp, study["unique"], seed=sc.seed,
+                                 device=devices)
+
+    log(f"[split] phase 4's pass: {n_lanes} lanes in "
+        f"{main_run['wall_s']:.4f} s, {n_lanes / main_run['wall_s']:.1f} "
+        f"lanes/s, {main_run['launches']} lane_loop launches; on {smi}")
+    for tag, devices, shards in (
+            ("unsplit (device='cuda:0')", "cuda:0", 1),
+            ("1 shard (device=['cuda:0'])", ["cuda:0"], 1),
+            (f"{SPLIT_SHARDS} shards (device=['cuda:0'] * {SPLIT_SHARDS})",
+             ["cuda:0"] * SPLIT_SHARDS, SPLIT_SHARDS)):
+        run = _split_run(study_pass, devices)
+        _assert_same(main_run["result"], run["result"], f"split {tag}")
+        c = run["counters"]
+        if c["torch.shards"] != shards * c["torch.chunks"] \
+                or run["launches"] != shards * c["torch.chunks"]:
+            raise AssertionError(f"split {tag}: {c['torch.shards']} shards, "
+                                 f"{run['launches']} launches over "
+                                 f"{c['torch.chunks']} chunk(s), not "
+                                 f"{shards} a chunk")
+        log(_split_line(tag, run, n_lanes, smi) + "; == phase 4 on every "
+            "BatchResult field")
+
+    # (b) phase 5's 65,536-lane chunk cut four ways on the one card.
+    lanes = np.arange(BIG_LANES)
+    run = _split_run(lambda devices: scale["run"](lanes, devices),
+                     ["cuda:0"] * SPLIT_SHARDS)
+    _assert_same(scale["result"], run["result"], "split 65,536 lanes")
+    if run["counters"]["torch.shards"] != SPLIT_SHARDS:
+        raise AssertionError("split 65,536 lanes: "
+                             f"{run['counters']['torch.shards']} shards")
+    log(_split_line(f"{BIG_LANES} lanes, {SPLIT_SHARDS} shards on cuda:0",
+                    run, BIG_LANES, smi)
+        + f"; phase 5's unsplit chunk {BIG_LANES / scale['wall_s']:.1f} "
+        f"lanes/s; == phase 5 on every BatchResult field")
+
+    # (c) every visible card.
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        for tag, devices in ((f"{n_cards} cards (device=None)", None),
+                             (f"{n_cards} cards (a list)",
+                              [f"cuda:{k}" for k in range(n_cards)])):
+            run = _split_run(study_pass, devices)
+            _assert_same(main_run["result"], run["result"], f"split {tag}")
+            if run["counters"]["torch.shards"] != \
+                    n_cards * run["counters"]["torch.chunks"]:
+                raise AssertionError(f"split {tag}: not one shard a card")
+            log(_split_line(tag, run, n_lanes, smi) + "; == phase 4 on "
+                "every BatchResult field")
+    else:
+        log("[split] 1 card visible: the multi-card split is not run here")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[split] phase 5a on {smi}: {phase_s:.1f} s (budget "
+        f"{SPLIT_BUDGET_S:.0f} s)")
+    if phase_s > SPLIT_BUDGET_S:
+        raise AssertionError(f"phase 5a took {phase_s:.1f} s, past its "
+                             f"{SPLIT_BUDGET_S:.0f} s budget")
 
 
 def _device_rows(prof) -> list[tuple[float, str, int]]:
@@ -3508,8 +3658,57 @@ def _time_decode(layers: list, what: str = "the last decode step") -> dict:
     log(f"[timing] decode_attention, device time per call (profiler): "
         + ", ".join(said) + f"; kernel at {bound_ms / dev['ms']:.4f} of "
         f"the bound")
+    # The same calls without the profiler (which loses events at some of
+    # these shapes): captured back to back in one CUDA graph, its replays
+    # timed by CUDA events.
+    graph, said = {}, []
+    for key, fn, name in (("graph_library_ms", library,
+                           "scaled_dot_product_attention"),
+                          ("graph_ms", kernel, "kernel")):
+        graph[key], note = _graph_ms(fn, per)
+        said.append(f"{name} " + ("not measured" if graph[key] is None
+                                  else f"{graph[key]:.5f} ms") + f" ({note})")
+    log(f"[timing] decode_attention (q {tuple(q.shape)} {q.dtype}, caches "
+        f"{tuple(kc.shape)}, window {window}), per call by CUDA-graph "
+        f"replay: " + ", ".join(said) + f"; on {_smi()}")
     da.decode_attention.launches = launches       # timing does not count
-    return {**out, **dev, "device_events": counts}
+    return {**out, **dev, **graph, "device_events": counts}
+
+
+def _graph_ms(fn, per: int, reps: int = 10,
+              replays: int = 5) -> tuple[float | None, str]:
+    """Device time per call without the profiler: ``reps`` runs of ``fn``
+    (``per`` calls each) captured back to back in one CUDA graph
+    (``capture_error_mode="thread_local"``), its replays timed by CUDA
+    events.  Returns (ms per call, how), or (None, why) where capture
+    refuses the calls."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            for _ in range(reps):
+                fn()
+    except RuntimeError as err:
+        torch.cuda.synchronize()
+        return None, f"capture refused: {str(err).splitlines()[0][:160]}"
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * reps * per)
+    del graph
+    return ms, f"{reps} x {per} calls a graph, {replays} replays"
 
 
 def _time_flash(q, k, v, window: int = 0,
@@ -5469,6 +5668,7 @@ def _main(t_start: float, device: dict, children: list) -> int:
     adaptive = phase_adaptive(study)
     main_run = phase_main(study)
     scale = phase_scale()
+    phase_split(study, main_run, scale)
     phase_timing(study["n_lanes"])
     loop_timing = phase_loop_timing(loop_check)
     log(f"[done] study phases {time.perf_counter() - t_start:.1f} s")

@@ -9,8 +9,9 @@ fleet of phase machines advanced together on the device by
 
 The port's own copy of ``repro/core/batch.py`` (bank packing, trust codes,
 :class:`BatchResult`, candidate arrays and the two entry points), with
-``device=`` (``None`` means CUDA; ``"cpu"`` runs the plain versions) and
-``chunk=`` in place of ``backend=``.
+``device=`` (``None`` means CUDA; ``"cpu"`` runs the plain versions; a
+list of devices splits each chunk over them, in place of the reference's
+``REPRO_JAX_SHARD``) and ``chunk=`` in place of ``backend=``.
 
 Equivalence contract: every lane is **bit-for-bit** the JAX package's
 scalar ``simulate(trace, ..., rng=np.random.default_rng(seed))`` and its
@@ -29,6 +30,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..device import DeviceSpec
 from .batch_torch import run_lanes_torch
 from .simulator import (WINDOW_MODES, AlwaysTrust, FixedProbabilityTrust,
                         NeverTrust, SimResult, ThresholdTrust, TrustPolicy)
@@ -319,7 +321,7 @@ def lane_results(
     keep_ckpts: Sequence[int] | None = None,
     start: float = 0.0,
     chunk: int | None = None,
-    device: str | torch.device | None = None,
+    device: DeviceSpec = None,
 ) -> BatchResult:
     """Simulate an explicit list of (trace, candidate) lanes; returns the
     per-lane results as a ``(1, n_lanes)`` :class:`BatchResult`.
@@ -399,7 +401,7 @@ def simulate_batch(
     start: float = 0.0,
     trace_seeds: Sequence[int] | int | None = None,
     chunk: int | None = None,
-    device: str | torch.device | None = None,
+    device: DeviceSpec = None,
 ) -> BatchResult:
     """Simulate every (candidate, trace) pair of a grid in lockstep.
 
@@ -433,7 +435,10 @@ def simulate_batch(
         ``None`` means seed 0 (the scalar engine's default rng).
       chunk: lanes run at once (``None``: the whole grid).
       device: where the lanes run (``None``: CUDA, raising if there is
-        none; ``"cpu"`` runs the plain versions of the kernels).
+        none, and split over every card when more than one is visible;
+        ``"cpu"`` runs the plain versions of the kernels); a list or
+        tuple of devices (repeats allowed) splits each chunk over them
+        (``run_lanes_torch``).
 
     Returns:
       :class:`BatchResult` with ``(n_candidates, n_traces)`` arrays.  Each

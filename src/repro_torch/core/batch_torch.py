@@ -8,7 +8,7 @@ finished.  The body and the chunk's state layout are in
 (:class:`~repro_torch.kernels.lane_loop.Lanes`), drives it and reads the
 results back.
 
-The host loop (``_run_chunk``) calls :func:`lane_loop` with at most
+The host loop (``_run_shards``) calls :func:`lane_loop` with at most
 ``_LAUNCH_CAP`` iterations a call and reads back one stop flag after
 each call, until no lane can run on: on the card each call is one launch
 of the lane-loop kernel, which keeps a lane's whole state in registers for
@@ -31,7 +31,23 @@ a slot sits, so the bits are those of the numpy engine's growing slots.
 Lane randomness (FixedProbability trust draws, in-window fault offsets) is
 pre-drawn per lane on the host with numpy (``_draw_tables``), exactly as
 the JAX engine does, and consumed at the scalar engine's draw sites.
-Multi-card sharding is not part of this engine yet.
+
+A chunk can be split over a list of devices (``device=[...]``, the
+counterpart of the JAX engine's ``shard_map`` over ``jax.devices()`` under
+``REPRO_JAX_SHARD``; :func:`repro_torch.device.resolve_devices`): it is
+cut into contiguous shards of ``ceil(n / len(devices))`` lanes, in lane
+order, each with its own chunk state on its device, and the bank is
+uploaded once per distinct device.  The reference pads a chunk to a
+multiple of its shard count because ``shard_map`` needs equal shards;
+here results are per lane, so no padded lane runs (a short chunk leaves
+the last shards empty, and they run nothing).  In each round the host
+loop calls :func:`lane_loop` on every live shard before it reads any
+flag, so shards on different cards run together; shards on one card
+queue on its stream.  Lanes do not interact, so the bits do not depend
+on the split.  Adaptive grids are never split: the reference keeps them
+off its ``shard_map`` path (their re-plans are a host callback inside
+the loop), and here they run unsplit on the list's first device, counted
+as one shard.
 """
 
 from __future__ import annotations
@@ -42,7 +58,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import resolve_devices
 from ..kernels.event_step import (F_NOW, F_PERIOD, F_PHEND, F_TARGET,
                                   F_TCKPT, F_TDOWN, F_TDOWNT, F_TLOST,
                                   F_TPROC, F_TRECOV, F_TVERIFY, F_VCOST,
@@ -148,25 +164,44 @@ def _replan(lanes: Lanes, cfgs: Sequence, platform: Platform,
     return done
 
 
-def _run_chunk(loop, lanes: Lanes, g: LaneBank, cap: int,
-               replan=None) -> int:
-    """The host loop: calls of ``loop`` (:func:`lane_loop` or its plain
-    version) of at most ``cap`` iterations, one stop flag read back after
-    each, until no lane can run on.  When lanes stopped for a re-plan,
-    ``replan(lanes)`` re-plans them before the next call.  Returns the
-    number of calls."""
+def _cat(rows: list[np.ndarray]) -> np.ndarray:
+    """Shards' rows side by side, in lane order."""
+    return rows[0] if len(rows) == 1 else np.concatenate(rows, axis=1)
+
+
+def _run_shards(loop, shards: Sequence[tuple], cap: int) -> int:
+    """The host loop over a chunk's shards, each ``(lanes, bank,
+    replan)``: rounds of calls of ``loop`` (:func:`lane_loop` or its plain
+    version) of at most ``cap`` iterations, one call on every live shard
+    before any stop flag is read back, until no lane of any shard can run
+    on.  When a shard's lanes stopped for a re-plan, ``replan(lanes)``
+    re-plans them before its next call.  Returns the number of calls."""
     reg = get_registry()
     calls = 0
-    while True:
-        flag = int(loop(lanes, g, cap=cap))
-        calls += 1
-        if flag & FLAG_REPLAN:
-            t0 = time.perf_counter()
-            reg.count("engine.replans", replan(lanes))
-            reg.count("torch.replan_rounds")
-            reg.add_time("torch.replan_s", time.perf_counter() - t0)
-        elif not flag & FLAG_RUN:
-            return calls
+    live = list(shards)
+    while live:
+        flags = [loop(lanes, g, cap=cap) for lanes, g, _ in live]
+        calls += len(live)
+        still = []
+        for shard, flag in zip(live, flags):
+            flag = int(flag)
+            if flag & FLAG_REPLAN:
+                t0 = time.perf_counter()
+                reg.count("engine.replans", shard[2](shard[0]))
+                reg.count("torch.replan_rounds")
+                reg.add_time("torch.replan_s", time.perf_counter() - t0)
+            elif not flag & FLAG_RUN:
+                continue
+            still.append(shard)
+        live = still
+    return calls
+
+
+def _run_chunk(loop, lanes: Lanes, g: LaneBank, cap: int,
+               replan=None) -> int:
+    """The host loop of one unsplit chunk: :func:`_run_shards` over it
+    alone."""
+    return _run_shards(loop, [(lanes, g, replan)], cap)
 
 
 def run_lanes_torch(bank, platform: Platform, time_base: float,
@@ -187,9 +222,14 @@ def run_lanes_torch(bank, platform: Platform, time_base: float,
 
     The arguments and the returned 26-key dict are those of the JAX
     package's ``run_lanes_jax``.  ``chunk`` bounds the lanes run at once
-    (``None``: all); ``device`` is where the lanes run (``None``: CUDA).
+    (``None``: all).  ``device`` is where the lanes run: ``None`` is CUDA,
+    split over every visible card when there are more than one (the
+    reference's ``REPRO_JAX_SHARD=auto``); one device runs each chunk
+    unsplit (``=0``); a list or tuple, even of one device and with
+    repeats, splits each chunk over its entries (``=1``; module
+    docstring).  An adaptive grid runs unsplit on the first device.
     """
-    dev = resolve_device(device)
+    devs = resolve_devices(device)
     if np.any(lane_period < platform.c):
         raise ValueError(f"period below checkpoint {platform.c}")
 
@@ -256,29 +296,41 @@ def run_lanes_torch(bank, platform: Platform, time_base: float,
                    LF_PR: per_lane("prior_recall", 0.0),
                    LF_PP: per_lane("prior_precision", 0.0)}
 
+    if has_adaptive:
+        devs = devs[:1]
+
     reg = get_registry()
     t0 = time.perf_counter()
     tab = _draw_tables(bank, lane_trace, lane_kind, lane_window, lane_seed)
     reg.add_time("torch.tables_s", time.perf_counter() - t0)
     n_ev = bank.n_events[lane_trace]
 
-    def up(a: np.ndarray) -> torch.Tensor:
+    def up(a: np.ndarray, dev: torch.device) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     t0 = time.perf_counter()
-    g = LaneBank(times=up(bank.times),
-                 kinds=up(bank.kinds.astype(np.int32)),
-                 wins=up(bank.windows if bank.windows is not None
-                         else np.full_like(bank.times, -1.0)),
-                 zero=torch.zeros((), dtype=torch.float64, device=dev),
-                 c=c, cp=cp, d=d, r=r, time_base=time_base)
+    wins = (bank.windows if bank.windows is not None
+            else np.full_like(bank.times, -1.0))
+    banks = {dev: LaneBank(times=up(bank.times, dev),
+                           kinds=up(bank.kinds.astype(np.int32), dev),
+                           wins=up(wins, dev),
+                           zero=torch.zeros((), dtype=torch.float64,
+                                            device=dev),
+                           c=c, cp=cp, d=d, r=r, time_base=time_base)
+             for dev in dict.fromkeys(devs)}
     reg.add_time("torch.upload_s", time.perf_counter() - t0)
     CL = L if (chunk is None or chunk <= 0) else min(int(chunk), L)
     CL = max(CL, 1)
 
-    def init_chunk(idx: np.ndarray, slots: int) -> Lanes:
-        """The state at the start of lanes ``idx`` with ``slots``
-        deferred-fault slots (rows not set here start at 0)."""
+    def split(idx: np.ndarray) -> list[np.ndarray]:
+        """Lanes ``idx`` cut into contiguous shards of ``ceil(n / len(
+        devs))`` lanes, in lane order; no shard is empty."""
+        size = -(-idx.size // len(devs))
+        return [idx[lo:lo + size] for lo in range(0, idx.size, size)]
+
+    def init_chunk(idx: np.ndarray, slots: int, dev: torch.device) -> Lanes:
+        """The state at the start of lanes ``idx`` on ``dev`` with
+        ``slots`` deferred-fault slots (rows not set here start at 0)."""
         n = idx.size
         period = lane_period[idx]
         wpp0 = period - c
@@ -318,19 +370,29 @@ def run_lanes_torch(bank, platform: Platform, time_base: float,
         q = np.zeros((N_LQ, n), np.int64)
         q[LQ_TR] = lane_trace[idx]
         q[LQ_NEV] = n_ev[idx]
-        return Lanes(up(f), up(i), up(q), up(tab[idx]),
+        return Lanes(up(f, dev), up(i, dev), up(q, dev), up(tab[idx], dev),
                      adaptive=bool(ad_act[idx].any()))
 
-    def run(idx: np.ndarray, slots: int) -> tuple[np.ndarray, ...]:
-        """Run lanes ``idx`` to their end; their f, i, q rows read back."""
-        t0 = time.perf_counter()
-        lanes = init_chunk(idx, slots)
-        t1 = time.perf_counter()
+    def replanner(idx: np.ndarray):
         cfgs = [lane_adaptive[j] for j in idx]
-        calls = _run_chunk(lane_loop, lanes, g, _LAUNCH_CAP,
-                           lambda ln: _replan(ln, cfgs, platform, cp))
+        return lambda ln: _replan(ln, cfgs, platform, cp)
+
+    def run(idx: np.ndarray, slots: int) -> tuple[np.ndarray, ...]:
+        """Run lanes ``idx`` to their end, split over ``devs``; their f, i,
+        q rows read back in lane order."""
+        t0 = time.perf_counter()
+        shards = [(init_chunk(part, slots, dev), banks[dev], replanner(part))
+                  for part, dev in zip(split(idx), devs)]
+        t1 = time.perf_counter()
+        if len(shards) == 1:     # the unsplit loop, which tests wrap
+            calls = _run_chunk(lane_loop, *shards[0][:2], _LAUNCH_CAP,
+                               shards[0][2])
+        else:
+            calls = _run_shards(lane_loop, shards, _LAUNCH_CAP)
         t2 = time.perf_counter()
-        out = tuple(t.cpu().numpy() for t in (lanes.f, lanes.i, lanes.q))
+        out = tuple(_cat([getattr(lanes, part).cpu().numpy()
+                          for lanes, _, _ in shards])
+                    for part in ("f", "i", "q"))
         reg.add_time("torch.upload_s", t1 - t0)
         reg.add_time("torch.run_s", t2 - t1)
         reg.add_time("torch.readback_s", time.perf_counter() - t2)
@@ -346,6 +408,7 @@ def run_lanes_torch(bank, platform: Platform, time_base: float,
         idx = np.arange(lo, min(lo + CL, L))
         f, i, q = run(idx, _DEF_SLOTS)
         reg.count("torch.chunks")
+        reg.count("torch.shards", len(split(idx)))
         reg.count("torch.iterations", int(q[LQ_ITERS].max()))
         keep_f[:, idx], keep_i[:, idx] = f[:LF_DEF], i[:LI_DEFSEQ]
         over = idx[i[LI_OVERFLOW] != 0]

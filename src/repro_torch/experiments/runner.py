@@ -62,7 +62,7 @@ from ..core.simulator import (AlwaysTrust, FixedProbabilityTrust,
                               simulate)
 from ..core.traces import EventTrace
 from ..core.waste import Platform
-from ..device import resolve_device
+from ..device import DeviceSpec, resolve_devices
 from .spec import SECONDS_PER_DAY, ExperimentSpec, ScenarioSpec
 
 __all__ = [
@@ -579,7 +579,7 @@ def candidate_results(
     seed: int = 0,
     trace_indices: Sequence[int] | None = None,
     chunk: int | None = None,
-    device: str | torch.device | None = None,
+    device: DeviceSpec = None,
 ) -> BatchResult:
     """Every candidate on every bank trace in ``trace_indices`` (``None``:
     all), as one lane pass of :func:`lane_results`: a
@@ -610,7 +610,7 @@ def candidate_makespans(
     seed: int = 0,
     trace_indices: Sequence[int] | None = None,
     chunk: int | None = None,
-    device: str | torch.device | None = None,
+    device: DeviceSpec = None,
 ) -> np.ndarray:
     """:func:`candidate_results`' makespans,
     ``(len(candidates), len(trace_indices))``."""
@@ -717,7 +717,7 @@ def evaluate_strategies(
     workers: int | None = None,
     engine: str | None = None,
     chunk: int | None = None,
-    device: str | torch.device | None = None,
+    device: DeviceSpec = None,
 ) -> list[float]:
     """Mean makespan of each strategy over the shared trace set.
 
@@ -748,7 +748,7 @@ def evaluate_mean(
     cache: EvalCache | None = None,
     workers: int | None = None,
     engine: str | None = None,
-    device: str | torch.device | None = None,
+    device: DeviceSpec = None,
 ) -> float:
     """Single-strategy convenience wrapper over :func:`evaluate_strategies`."""
     return evaluate_strategies(traces, platform, time_base, cp, [strategy],
@@ -769,7 +769,7 @@ def best_period_search(
     cache: EvalCache | None = None,
     workers: int | None = None,
     engine: str | None = None,
-    device: str | torch.device | None = None,
+    device: DeviceSpec = None,
 ) -> tuple[Strategy, float]:
     """Brute-force the best period for a strategy (paper's BestPeriod):
     ``(the strategy at its best grid period, its mean makespan)``, the
@@ -881,18 +881,21 @@ def _metric_value(metric: str, makespan: float | None,
     raise KeyError(f"unknown metric {metric!r}")
 
 
-def _engine_fingerprint(device: str | torch.device | None = None) -> str:
+def _engine_fingerprint(device: DeviceSpec = None) -> str:
     """Cache-identity tag of the port's engines on ``device``:
     ``torch-<version>-<device type>-<device name>|``.  The reference tags
     its numpy engines ``""`` and its jax engine ``jax-...|``, so a port
-    record never aliases a reference record."""
-    dev = resolve_device(device)
+    record never aliases a reference record.  A device list
+    (:func:`repro_torch.device.resolve_devices`) takes its first device's
+    tag: a split run has one card's bits, so it shares the unsplit run's
+    cache entries and suite records."""
+    dev = resolve_devices(device)[0]
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     return f"torch-{torch.__version__}-{dev.type}-{name}|"
 
 
 def _cell_persist_key(cell: ScenarioSpec, batched_bank: bool,
-                      device: str | torch.device | None = None) -> str:
+                      device: DeviceSpec = None) -> str:
     """Content hash of one evaluation context: the scenario spec (which
     covers the trace bank seeds/sizes, platform, cp and the evaluation
     seed), the bank sampling mode and the engine tag
@@ -914,7 +917,7 @@ def run_experiment(
     persist: bool | None = None,
     engine: str | None = None,
     batched_traces: bool | None = None,
-    device: str | torch.device | None = None,
+    device: DeviceSpec = None,
 ) -> ResultTable:
     """Run an :class:`ExperimentSpec`; returns the tidy result table.
 
@@ -1068,7 +1071,7 @@ class SuiteRunResult:
         return "\n".join(lines)
 
 
-def _suite_item_identity(item: Any, device: str | torch.device | None
+def _suite_item_identity(item: Any, device: DeviceSpec
                          ) -> tuple[dict, Any]:
     """(identity dict, built ExperimentSpec | None) of one suite item.
 
@@ -1126,7 +1129,7 @@ def _metrics_outputs(reg: Any) -> tuple[dict, dict]:
 
 def _run_suite_item(item: Any, store: Any, *, resume: bool,
                     engine: str | None, workers: int | None,
-                    verbose: bool, device: str | torch.device | None
+                    verbose: bool, device: DeviceSpec
                     ) -> SuiteItemResult:
     from ..obs.metrics import MetricsRegistry, set_registry
     from ..store import RunRecord, evaluate_claims
@@ -1195,7 +1198,7 @@ def run_suite(
     engine: str | None = None,
     workers: int | None = None,
     verbose: bool = False,
-    device: str | torch.device | None = None,
+    device: DeviceSpec = None,
 ) -> SuiteRunResult:
     """Run a scenario suite through the result store (resumably).
 
@@ -1213,7 +1216,7 @@ def run_suite(
     """
     from ..store import ResultStore, RunRecord, SuiteSpec
 
-    resolve_device(device)
+    resolve_devices(device)
     if not isinstance(suite, SuiteSpec):
         suite = SuiteSpec.from_file(suite)
     store = store if store is not None else ResultStore()

@@ -17,6 +17,9 @@ Metric names used by the instrumented call sites:
 ``torch.iterations``                    per chunk, the largest number of
                                         iterations a lane ran; summed over
                                         chunks
+``torch.shards``                        per chunk, the shards it was cut
+                                        into (1 unsplit; a device list
+                                        splits it); summed over chunks
 ``torch.loop_calls``                    ``lane_loop`` calls of the host
                                         loop (each a kernel launch on the
                                         card, a plain-loop run on the CPU)
